@@ -5,16 +5,19 @@ proof that it still starts and computes the right bytes on the card).
 Phases, each fatal on failure:
   1. build   compile the three CUDA kernels (erlamsa_tpu_torch/csrc/
              round_apply.cu, case_rounds.cu, randmask.cu) for sm_90a from
-             the checkout's sources, one nvcc each, all at once, and count
-             the integer instructions of one threefry word in the SASS of
-             a probe kernel (for the kernels' operation bounds);
+             the checkout's sources, one nvcc each, all at once; print
+             ptxas's registers, spills and shared memory per kernel and
+             the CTAs per SM at the main path's row width; count the
+             integer instructions of one threefry word in the SASS of a
+             probe kernel (for the kernels' operation bounds);
   2. kernel  hold each kernel against its plain PyTorch version on the
              card, byte for byte (tolerance 0: every function is integer):
              the round kernel over every kind and the edge programs, the
              case kernel over rows of the three corpus shapes (a quarter
              of them filled to the row end, for the wraparound) with the
              default priorities and, at L=256, each mutator forced alone,
-             and the mask kernel; at L = 256, 8192, 65536;
+             and the mask kernel; at L = 256, 8192, 65536 (the kernels'
+             shared-memory path) and 1,000,000 (their device-memory path);
   3. main    the batch fuzzer's main path (services/batchrunner.fuzz_cases,
              the loop behind ``python -m erlamsa_tpu_torch``) at full
              width, once per stream: ERLAMSA_PALLAS=2 (the case kernel),
@@ -26,13 +29,26 @@ Phases, each fatal on failure:
              run gives the same bytes, and 64 rows equal the CPU plain
              path through make_class_fuzzer.
 
-Then it times each kernel at the main path's shape (CUDA events) beside
-its plain version and its bound, prints samples/s for each stream, the
-card's name and power limit, one JSON line describing the kernels, and as
-the last line {"ok": true, "device": {...}}. Without CUDA, or outside a
+Then it times each kernel at the main path's shape beside its plain
+version and its bound: ``ms`` is device time, CUDA events around replays
+of a CUDA graph that holds 20 launches (the host's per-call work left
+out), and the wrapper's per-call time (events around back-to-back calls)
+is printed beside it. It prints samples/s for each stream, the card's
+name and power limit, one JSON line describing the kernels, and as the
+last line {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile] [--compare DIR ...]
+
+--profile   trace one level-2 case at the main path's shape under
+            torch.profiler (CPU and CUDA): the ten largest device ops,
+            the device's idle share, the case kernel's share of the case.
+--compare   each DIR holds another checkout of the repository (for
+            example the parent commit, from git archive): build its round
+            and case kernels and time them against this checkout's in
+            turns (theirs, ours, ours, theirs) on the main path's inputs;
+            with --profile, trace a level-2 case with the first DIR's case
+            kernel too.
 """
 
 from __future__ import annotations
@@ -75,7 +91,9 @@ extern "C" __global__ void words8(uint32_t k0, uint32_t k1, uint32_t* o) {
 BATCH = 4096  # seeds, one capacity class (BASELINE.json configs[2])
 CASES = 4
 CHECK_ROWS = 64  # rows held against the CPU plain path
-KERNEL_SIZES = ((256, 256), (8192, 256), (65536, 32))  # (L, B)
+# (L, B): the kernels' shared-memory path up to 65536, device memory above
+KERNEL_SIZES = ((256, 256), (8192, 256), (65536, 32), (1000000, 4))
+GRAPH_LAUNCHES = 20  # launches per CUDA graph when timing a kernel
 M = 31  # device mutators
 STREAMS = ((2, "case kernel"), (1, "round kernel"), (0, "composite"))
 
@@ -130,7 +148,7 @@ def seed_bytes(rng, i, n):
         return (line * (n // len(line) + 1))[:n]
     if kind == 1:
         blob = bytes(rng.integers(33, 127, max(n - 4, 0), dtype=np.uint8))
-        return (b"HD" + len(blob).to_bytes(2, "big") + blob)[:n]
+        return (b"HD" + min(len(blob), 0xFFFF).to_bytes(2, "big") + blob)[:n]
     return bytes(rng.integers(0, 256, n, dtype=np.uint8))
 
 
@@ -172,6 +190,33 @@ def cuda_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
+    """Device time per call of fn: CUDA events around replays of a CUDA
+    graph that holds ``launches`` calls, so the host's per-call work
+    (operand checks, the ctypes call) stays out. Warmed up outside the
+    capture (builds, constant tables copied to the card on first use)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (replays * launches)
+    del g
+    return ms
 
 
 def max_err(got, want) -> int:
@@ -255,7 +300,8 @@ def kernels_vs_plain(rng, dev):
         torch.cuda.synchronize()
         err = max_err(got, ra.round_apply_plain(*ops))
         errs["round_apply"] = max(errs["round_apply"], err)
-        print(f"kernel-vs-plain round_apply: L={L} B={B} max_abs_err={err}")
+        print(f"kernel-vs-plain round_apply: L={L} B={B} "
+              f"path={ra.path(L)} max_abs_err={err}")
         check(err == 0, f"round kernel != plain at L={L}")
 
         keys, data, n, scores, rounds = case_inputs(rng, B, L, dev)
@@ -276,7 +322,7 @@ def kernels_vs_plain(rng, dev):
             errs["case_rounds"] = max(errs["case_rounds"], err)
             check(err == 0, f"case kernel != plain at L={L}, pri {j}")
             applied |= set(got[3].flatten().tolist())
-        print(f"kernel-vs-plain case_rounds: L={L} B={B} "
+        print(f"kernel-vs-plain case_rounds: L={L} B={B} path={ra.path(L)} "
               f"priority vectors={len(pris)} mutators applied="
               f"{len(applied - {-1})} max_abs_err={errs['case_rounds']}")
 
@@ -401,9 +447,135 @@ def main_path(level, corpus, seed3, dev):
     return launches, samples / cold_s, samples / warm_s
 
 
+def load_port(root):
+    """The erlamsa_tpu_torch package of another checkout, imported under
+    another name (its modules import each other relatively); its kernels
+    build into that checkout's own _build directory."""
+    import importlib
+    import importlib.util
+
+    name = "erlamsa_tpu_torch_" + re.sub(r"\W", "_", os.path.abspath(root))
+    if name not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "erlamsa_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        for sub in ("ops", "ops.cuda_build", "ops.round_apply",
+                    "ops.case_rounds"):
+            importlib.import_module(f"{name}.{sub}")
+    return sys.modules[name]
+
+
+def compare(root, captured, c_args, card):
+    """Time the round and case kernels of the checkout at ``root`` against
+    this checkout's, in turns (theirs, ours, ours, theirs), on the main
+    path's captured inputs: device time (CUDA graph) and wrapper time."""
+    from erlamsa_tpu_torch.ops import case_rounds as cr
+    from erlamsa_tpu_torch.ops import round_apply as ra
+
+    other = load_port(root)
+    t = time.perf_counter()
+    other.ops.cuda_build.build_all(["round_apply", "case_rounds"])
+    print(f"compare: built {root}'s kernels in {time.perf_counter() - t:.1f}s")
+    if hasattr(other.ops.cuda_build, "ptxas_report"):
+        for name in ("round_apply", "case_rounds"):
+            for entry, info in other.ops.cuda_build.ptxas_report(name):
+                print(f"compare: ptxas {name} {entry}: {info}")
+            mod = getattr(other.ops, name)
+            print(f"compare: {name} CTAs per SM at L=8192 / 1000000: "
+                  f"{mod.ctas_per_sm(8192)} / {mod.ctas_per_sm(1000000)}")
+    ra_args = captured["round_apply"]
+    for name, ours, theirs, args in (
+            ("round_apply", ra.round_apply, other.ops.round_apply.round_apply,
+             ra_args),
+            ("case_rounds", cr.case_rounds, other.ops.case_rounds.case_rounds,
+             c_args)):
+        check(max_err(ours(*args), theirs(*args)) == 0,
+              f"{name}: {root}'s kernel and this one differ")
+        dev_ms, wrap_ms = [], []
+        for fn in (theirs, ours, ours, theirs):
+            dev_ms.append(graph_ms(lambda fn=fn: fn(*args)))
+            wrap_ms.append(cuda_ms(lambda fn=fn: fn(*args), 20))
+        fmt = lambda v: " / ".join(f"{x:.4f}" for x in v)  # noqa: E731
+        shape = list(args[1 if name == "case_rounds" else 3].shape)
+        print(f"compare {name} at {shape} (theirs, ours, ours, theirs): "
+              f"device ms {fmt(dev_ms)}; "
+              f"wrapper ms {fmt(wrap_ms)}; outputs equal; theirs = {root}; "
+              f"card {card}")
+
+
+def profile_case(corpus, seed3, dev, card, label):
+    """One level-2 case at the main path's shape under torch.profiler:
+    the ten largest device ops, the device's idle share over the case and
+    the case kernel's share of the case."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from erlamsa_tpu_torch.ops import prng
+    from erlamsa_tpu_torch.ops.pipeline import make_class_fuzzer
+    from erlamsa_tpu_torch.ops.scheduler import init_scores
+    from erlamsa_tpu_torch.services.batchrunner import class_panels
+
+    (idx, packed, scan_len), = class_panels(corpus, dev).values()
+    step = make_class_fuzzer(device=dev, level=2)
+    base = prng.base_key(tuple(seed3), device=dev)
+    scores = init_scores(prng.fold_in(base, 999), len(corpus))
+
+    def case(c):
+        out = step(base, c, idx, packed.data, packed.lens, scores[idx],
+                   scan_len=scan_len)
+        torch.cuda.synchronize()
+        return out
+
+    case(0)  # warm: builds, tables on the card, allocator
+    t = time.perf_counter()
+    case(1)
+    plain_wall = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        case(1)
+        wall = (time.perf_counter() - t) * 1e3
+    dev_type = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == dev_type)
+    busy, end = 0.0, None
+    for a, b in spans:  # union of the device intervals, in us
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ops = [e for e in prof.key_averages() if e.device_type == dev_type]
+    ops.sort(key=dev_us, reverse=True)
+    kern = sum(dev_us(e) for e in ops if "case_rounds_kernel" in e.key) / 1e3
+    print(f"profile level-2 case ({label}) at [{len(corpus)}, "
+          f"{packed.data.shape[1]}]: {plain_wall:.3f} ms unprofiled, "
+          f"{wall:.3f} ms profiled, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; case kernel {kern:.4f} ms = "
+          f"{kern / busy:.3f} of device time, {kern / plain_wall:.3f} of the "
+          f"unprofiled case; card {card}")
+    for e in ops[:10]:
+        print(f"  {dev_us(e) / 1e3:9.4f} ms x{e.count:<5d} {e.key[:100]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="trace one level-2 case under torch.profiler")
+    ap.add_argument("--compare", metavar="DIR", nargs="+", default=[],
+                    help="other checkouts whose kernels to time against")
     args = ap.parse_args()
 
     import torch
@@ -441,6 +613,12 @@ def main() -> int:
     print(f"threefry word in sm_90a SASS: {ops_per_word:g} integer-pipe "
           f"instructions ({ops}); bound rate {INT32_OPS_PER_S:.4g} int32 "
           f"ops/s")
+    for name in ("round_apply", "case_rounds"):
+        for entry, info in cuda_build.ptxas_report(name):
+            print(f"ptxas {name} {entry}: {info}")
+    print("CTAs per SM at L=8192 / 1000000: " + "; ".join(
+        f"{mod.__name__.rsplit('.', 1)[1]} {mod.ctas_per_sm(8192)} / "
+        f"{mod.ctas_per_sm(1000000)}" for mod in (ra, cr)))
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
@@ -489,7 +667,8 @@ def main() -> int:
     # round kernel on the ERLAMSA_PALLAS=1 path's first-round inputs
     keys, params, lit, data = captured["round_apply"]
     B, L = data.shape
-    ms = cuda_ms(lambda: ra.round_apply(keys, params, lit, data), 50)
+    ms = graph_ms(lambda: ra.round_apply(keys, params, lit, data))
+    wrap_ms = cuda_ms(lambda: ra.round_apply(keys, params, lit, data), 50)
     plain_ms = cuda_ms(lambda: ra.round_apply_plain(keys, params, lit, data),
                        5)
     err = max_err(ra.round_apply(keys, params, lit, data),
@@ -515,13 +694,18 @@ def main() -> int:
     bound_ms, bound_by = bound(moved, words, ops_per_word)
     rows.append(("round_apply", "erlamsa_tpu/ops/pallas_kernels.py:319",
                  launches[1]["round_apply"], max(errs["round_apply"], err),
-                 ms, plain_ms, bound_ms, bound_by, B, L, moved, words))
+                 ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
+                 wrap_ms))
 
-    # case kernel on the ERLAMSA_PALLAS=2 path's first inputs
-    c_args = captured["case_rounds"]
+    # case kernel on the ERLAMSA_PALLAS=2 path's first inputs, the int
+    # operands cast to the kernel's int32 once so that the graph holds
+    # the kernel alone
+    c_args = [x.to(torch.int32) if x.dtype == torch.int64 and j > 1 else x
+              for j, x in enumerate(captured["case_rounds"])]
     keys, data = c_args[0], c_args[1]
     B, L = data.shape
-    ms = cuda_ms(lambda: cr.case_rounds(*c_args), 10)
+    ms = graph_ms(lambda: cr.case_rounds(*c_args))
+    wrap_ms = cuda_ms(lambda: cr.case_rounds(*c_args), 20)
     plain_ms = cuda_ms(lambda: cr.case_rounds_plain(*c_args), 1)
     err = max_err(cr.case_rounds(*c_args), cr.case_rounds_plain(*c_args))
     check(err == 0, "case kernel != plain on the main path's inputs")
@@ -532,7 +716,8 @@ def main() -> int:
     bound_ms, bound_by = bound(moved, words, ops_per_word)
     rows.append(("case_rounds", "erlamsa_tpu/ops/pallas_rounds.py:1180",
                  launches[2]["case_rounds"], max(errs["case_rounds"], err),
-                 ms, plain_ms, bound_ms, bound_by, B, L, moved, words))
+                 ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
+                 wrap_ms))
 
     # mask kernel: no main path runs it; timed at the main path's shape
     seeds = torch.from_numpy(rng.integers(-2**31, 2**31, B)
@@ -546,7 +731,8 @@ def main() -> int:
                           torch.ones_like(start)], 1).to(torch.int32)
     mdata = data.clone()
     mkeys = rm.seed_keys(seeds)
-    ms = cuda_ms(lambda: rm.randmask(seeds, params, mdata), 50)
+    ms = graph_ms(lambda: rm.randmask_keys(mkeys, params, mdata))
+    wrap_ms = cuda_ms(lambda: rm.randmask(seeds, params, mdata), 50)
     plain_ms = cuda_ms(lambda: rm.randmask_plain(mkeys, params, mdata), 5)
     err = max_err(rm.randmask(seeds, params, mdata),
                   rm.randmask_plain(mkeys, params, mdata))
@@ -557,15 +743,28 @@ def main() -> int:
     moved = 2 * B * L + B * (4 + 5 * 4)
     bound_ms, bound_by = bound(moved, words, ops_per_word)
     rows.append(("randmask", "erlamsa_tpu/ops/pallas_kernels.py:97",
-                 mask_launches, max(errs["randmask"], err), ms, plain_ms, bound_ms,
-                 bound_by, B, L, moved, words))
+                 mask_launches, max(errs["randmask"], err), ms, plain_ms,
+                 bound_ms, bound_by, B, L, moved, words, wrap_ms))
 
     for (name, _rep, n_launch, e, ms, plain_ms, bound_ms, bound_by, B, L,
-         moved, words) in rows:
-        print(f"{name} at [{B}, {L}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+         moved, words, wrap_ms) in rows:
+        print(f"{name} at [{B}, {L}]: {ms:.4f} ms device (CUDA graph), "
+              f"{wrap_ms:.4f} ms per wrapper call, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {words} "
               f"threefry words), {bound_ms / ms * 100:.1f}% of bound, "
               f"{n_launch} launches on its main path; card {card}")
+    for root in args.compare:
+        compare(root, captured, c_args, card)
+    if args.profile:
+        profile_case(corpus, seed3, dev, card, "this checkout")
+        if args.compare:
+            other = load_port(args.compare[0])
+            real = pipeline.case_rounds
+            pipeline.case_rounds = other.ops.case_rounds.case_rounds
+            try:
+                profile_case(corpus, seed3, dev, card, args.compare[0])
+            finally:
+                pipeline.case_rounds = real
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -14,56 +14,79 @@
 // (threefry.cuh). The TPU build's hardware-PRNG stream has no
 // reproducible counterpart and is not a target.
 //
-// Bound on an H100: bytes. Each round reads the row once for its tables
-// and once for its apply and writes it once; the threefry words are 64
-// per round plus those of the applied mutator's span or window.
+// Bound on an H100: bytes. The row must cross device memory twice, read
+// once and written once; the threefry words are 64 per round plus those
+// of the applied mutator's span or window.
 //
-// Design (first version, simple and right): one CTA per row, looping over
-// the row's own rounds, so a row pays only its own draw. The working row
-// lives in device memory (capacities reach 1,000,000 B) and ping-pongs
-// between the output row and a scratch row, one full pass per round;
-// the parity is chosen so that the last round writes the output row.
-// Tables are block-wide counts and selections: a count is a strided pass
-// plus a block sum; "the k-th position where p holds" gives each thread a
-// contiguous segment, counts it, scans the counts across the block and
-// lets the thread that holds the k-th walk its segment again. Only the
-// applied mutator's program is computed (every draw is addressed by slot
-// or word index, so skipping the others is exact). Scalar decisions are
-// made by every thread alike from shared values, so control flow stays
-// uniform across the block. Shared memory holds the 64 scalar words, the
-// scores, the literal row, the <= 256-byte Fisher-Yates window and the
-// line-permute window.
+// Design: one CTA per row, looping over the row's own rounds, so a row
+// pays only its own draw. Rows run from 0 to 16 rounds, so the CTAs are
+// launched in the order of their rows' round counts, most first (the
+// wrapper sorts them): the longest rows do not start last and set the
+// launch's tail.
+// - A row of L <= SMEM_MAX_L bytes (the 65536 class and below) lives in
+//   shared memory for the whole case: loaded once with 16-byte loads,
+//   ping-ponged between two shared buffers of L bytes, written once with
+//   16-byte stores. Device memory sees the bound's own traffic.
+// - Wider rows (262144, 1,000,000) ping-pong between the output row and a
+//   scratch row in device memory (the parity makes the last round write
+//   the output). The same code runs over both, through a generic row
+//   pointer; the template parameter only chooses where the two buffers
+//   are. The choice depends on L alone.
+// - One fused table pass over [0, n): each thread takes a 4-byte word of
+//   the row and the next one, and counts the line starts, digit-run
+//   starts, widenable bytes and the five sizer kinds of its four
+//   positions, the sizer value read from a funnel-shifted 4-byte window
+//   (wrapping modulo L as the TPU kernel's rolls do). The eight counts are
+//   reduced in one block reduction.
+// - "The k-th position where p holds" (line starts, digit runs, sizer
+//   candidates, fuse matches): each warp counts its slice of [0, n) by
+//   ballots over consecutive positions, a scan of the warp counts finds
+//   the warp that holds rank k, and that warp walks its slice again.
+// - Index math is 32-bit (L <= 1,000,000); the apply (row_apply.cuh,
+//   shared with the round kernel) assembles 16 output bytes per thread
+//   and store, with the program's geometry reduced once per round.
+// - The weighted pick is one warp: lane m draws for mutator m and a warp
+//   reduction keeps the first index among the largest draws. The line
+//   permute ranks its <= 64 keys in parallel, one thread per line.
+// - Only the applied mutator's program is computed (every draw is
+//   addressed by slot or word index, so skipping the others is exact).
+//   Scalar decisions are made by every thread alike from shared values,
+//   so control flow stays uniform across the block. The first-index tie
+//   rules and the modulo-L reads of the TPU kernel are kept.
+// - 128 threads a CTA and at most 128 registers a thread (ptxas spills
+//   nothing): 4 CTAs per SM. The per-round work is short, serial in
+//   parts and ends in barriers, so small CTAs and the longest-first
+//   launch order keep the SMs busy.
+// L must be a multiple of 16 (every capacity class is); 0 <= n <= L.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "threefry.cuh"
+#include "row_apply.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using namespace erl;
+
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 4;  // <= 128 registers: ptxas spills nothing
 constexpr int WARPS = THREADS / 32;
+constexpr int SMEM_MAX_L = 65536;
 constexpr int M = 31;
 constexpr int R_MAX = 16;
 constexpr int SB_ROW = 64;
 constexpr int VB_ROWS = 6;
-constexpr int SCRATCH = 48;
 constexpr int RENDER = 24;
 constexpr int MAX_PARSE_DIGITS = 18;
-constexpr int PERM_WINDOW = 256;
 constexpr int PERM_LINES_W = 64;
-constexpr int MATCH_DEPTH = 4;
 constexpr int MIN_SCORE = 2;
 constexpr int MAX_SCORE = 10;
 constexpr long long ABSMAX_BINARY_BLOCK = 1000000;
 constexpr long long INT64_MAX_ = 0x7FFFFFFFFFFFFFFFLL;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 constexpr uint32_t TAG_PERM = 0x07;
 constexpr uint32_t TAG_SITE = 0x09;
-
-constexpr int K_NONE = 0, K_SPLICE = 1, K_SWAP = 2, K_PERM_BYTES = 3,
-              K_PERM_LINES = 4, K_MASK = 5;
-constexpr int SRC_SPAN = 1, SRC_LIT = 2;
 
 // mutator indices (registry.DEVICE_CODES order)
 enum {
@@ -89,6 +112,10 @@ __constant__ int PRED_OF[M] = {
 __constant__ int AAA_COUNTS[10] = {127,   128,   255,   256,   16383,
                                    16384, 32767, 32768, 65535, 65536};
 
+__constant__ uint32_t POW10[10] = {1u,      10u,      100u,      1000u,
+                                   10000u,  100000u,  1000000u, 10000000u,
+                                   100000000u, 1000000000u};
+
 // scalar-word slots (pallas_rounds.py _SB_*)
 constexpr int SB_POS = M, SB_VAL = M + 1, SB_LEN = M + 2, SB_AUX = M + 3,
               SB_DELTA = M + 4, SB_MASKOP = M + 5, SB_PROB = M + 6,
@@ -99,9 +126,8 @@ constexpr int SB_POS = M, SB_VAL = M + 1, SB_LEN = M + 2, SB_AUX = M + 3,
               SB_FUSEP = M + 28, SB_FUSEDEP = M + 29, SB_FUSEPICK = M + 30,
               SB_FUSEFB = M + 31, SB_FUSELEN = M + 32;
 
-// vector-word rows
-constexpr int VB_MASK0 = 0, VB_MASK1 = 1, VB_MASK2 = 2, VB_FY = 3,
-              VB_WIDE = 4, VB_LPERM = 5;
+// vector-word rows (the apply reads rows 0-3 through row_apply.cuh)
+constexpr int VB_WIDE = 4, VB_LPERM = 5;
 
 // payload-table layout, as ops/payloads.py lays the rows out
 enum {
@@ -129,31 +155,26 @@ struct Prog {
 struct Shared {
   uint32_t sb[SB_ROW];
   int scores[M];
+  int pri[M];
   int log[R_MAX];
-  int warp[WARPS];
+  uint32_t draws[M];
+  int pick;
+  int red[WARPS][8];
+  int wcount[WARPS];
   unsigned long long warp64[WARPS];
-  long long sel[PERM_LINES_W + 1];
+  int sel[PERM_LINES_W + 1];
   uint8_t lit[SCRATCH];
   uint8_t win[PERM_WINDOW];
   uint32_t vrow[PERM_WINDOW];
-  long long lens_w[PERM_LINES_W];
+  int lens_w[PERM_LINES_W];
   uint32_t keys[PERM_LINES_W];
-  long long cum[PERM_LINES_W];
-  long long pstart[PERM_LINES_W];
-  long long plen[PERM_LINES_W];
+  int order[PERM_LINES_W];
+  int cum[PERM_LINES_W];
+  int pstart[PERM_LINES_W];
+  int plen[PERM_LINES_W];
 };
 
 // --- scalar helpers -------------------------------------------------------
-
-__device__ __forceinline__ long long pymod(long long a, long long m) {
-  long long r = a % m;
-  return r < 0 ? r + m : r;
-}
-
-__device__ __forceinline__ long long clampll(long long x, long long lo,
-                                             long long hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
 
 __device__ __forceinline__ long long maxll(long long a, long long b) {
   return a > b ? a : b;
@@ -194,17 +215,17 @@ __device__ __forceinline__ long long kdelta(uint32_t b) {
   return (b & 1u) ? -1 : 1;
 }
 
-__device__ __forceinline__ bool is_digit_byte(uint8_t c) {
-  return c >= 48 && c <= 57;
-}
+__device__ __forceinline__ bool is_digit(uint32_t c) { return c - 48u < 10u; }
 
 // erlamsa_utils:binarish on the first 8 bytes (bytes min(k, L-1), k < 10)
-__device__ bool binarish(const uint8_t* d, long long n, long long L) {
+__device__ bool binarish(const uint8_t* d, int n, int L) {
   int b[10];
-  for (int k = 0; k < 10; ++k) b[k] = d[minll(k, L - 1)];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) b[k] = d[k < L - 1 ? k : L - 1];
   int first_bad = 8, first_bom = 8;
+#pragma unroll
   for (int k = 7; k >= 0; --k) {
-    const bool v = k < minll(n, 8);
+    const bool v = k < n;
     const bool bad = (b[k] == 0 || b[k] >= 128) && v;
     const bool bom = ((b[k] == 0xEF && b[k + 1] == 0xBB && b[k + 2] == 0xBF) ||
                       (b[k] == 0xFE && b[k + 1] == 0x0F)) &&
@@ -215,23 +236,72 @@ __device__ bool binarish(const uint8_t* d, long long n, long long L) {
   return first_bad < 8 && first_bad < first_bom;
 }
 
+// --- the tail length-field kinds (u8, u16be, u16le, u32be, u32le) --------
+
+__device__ __forceinline__ int sz_width(int kk) {
+  return kk == 0 ? 1 : (kk <= 2 ? 2 : 4);
+}
+
+// the field's value from the 4-byte window at its position (int32 bits)
+__device__ __forceinline__ uint32_t sz_value(int kk, uint32_t win) {
+  switch (kk) {
+    case 0: return win & 0xFFu;
+    case 1: return __byte_perm(win, 0u, 0x4401u);  // c * 256 + b1
+    case 2: return win & 0xFFFFu;                  // b1 * 256 + c
+    case 3: return __byte_perm(win, 0u, 0x0123u);  // big endian
+    default: return win;
+  }
+}
+
+// whether position i (< n) holds a candidate of kind kk: the value is
+// above 2 and ends the row within a small slack (int32 arithmetic, which
+// the uint32 wrap below reproduces)
+__device__ __forceinline__ bool sz_cand(int kk, uint32_t win, int i, int n) {
+  const int w = sz_width(kk);
+  if (i + w > n) return false;
+  const uint32_t v = sz_value(kk, win);
+  if ((int32_t)v <= 2) return false;
+  const uint32_t dlt = (uint32_t)n - v - (uint32_t)i - (uint32_t)w;
+  // u8: slack 0..8; wider kinds: slack 0, 1, 2, 4 or 8
+  return dlt <= 8u && (kk == 0 || ((0x117u >> dlt) & 1u));
+}
+
 // --- block-wide reductions --------------------------------------------------
 // Every thread of the block calls these, with the same arguments where
 // they are scalars; each returns its result to every thread.
 
-__device__ int block_sum(int v, Shared& sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+// eight counts summed over the block: one set of shuffles, one barrier pair
+__device__ void block_sum8(int (&v)[8], Shared& sh) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_down_sync(FULL, v[k], o);
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.warp[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sh.red[threadIdx.x >> 5][k] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    int t = 0;
+    for (int w = 0; w < WARPS; ++w) t += sh.red[w][k];
+    v[k] = t;
+  }
+}
+
+__device__ int block_sum(int v, Shared& sh) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh.red[threadIdx.x >> 5][0] = v;
   __syncthreads();
   int t = 0;
-  for (int w = 0; w < WARPS; ++w) t += sh.warp[w];
+  for (int w = 0; w < WARPS; ++w) t += sh.red[w][0];
   return t;
 }
 
 __device__ unsigned long long block_max64(unsigned long long v, Shared& sh) {
   for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long u = __shfl_down_sync(0xffffffffu, v, o);
+    const unsigned long long u = __shfl_down_sync(FULL, v, o);
     v = u > v ? u : v;
   }
   __syncthreads();
@@ -242,53 +312,49 @@ __device__ unsigned long long block_max64(unsigned long long v, Shared& sh) {
   return t;
 }
 
-// exclusive prefix sum of v over the threads, in thread order
-__device__ int block_excl_scan(int v, Shared& sh) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  __syncthreads();
-  if (lane == 31) sh.warp[w] = x;
-  __syncthreads();
-  int off = 0;
-  for (int j = 0; j < w; ++j) off += sh.warp[j];
-  return off + x - v;
-}
-
-// Positions of the trues of pred over [0, L) whose rank (0-based, in
+// Positions of the trues of pred over [0, n) whose rank (0-based, in
 // position order) lies in [k0, k0 + count): sh.sel[rank - k0] = position;
 // entries without such a true hold `none`. count <= PERM_LINES_W + 1.
+// Warp w takes the slice [w * per, (w + 1) * per), 32 consecutive
+// positions per ballot; the warp counts are scanned and the warps whose
+// ranks meet [k0, k0 + count) walk their slice again.
 template <class Pred>
-__device__ void select_range(const Pred& pred, long long L, long long k0,
-                             int count, long long none, Shared& sh) {
+__device__ void select_range(const Pred& pred, int n, int k0, int count,
+                             int none, Shared& sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if ((int)threadIdx.x < count) sh.sel[threadIdx.x] = none;
-  const long long seg = (L + THREADS - 1) / THREADS;
-  const long long lo = minll((long long)threadIdx.x * seg, L);
-  const long long hi = minll(lo + seg, L);
+  const int per = (n + THREADS - 1) / THREADS * 32;
+  const int lo = min(w * per, n), hi = min(lo + per, n);
   int c = 0;
-  for (long long i = lo; i < hi; ++i) c += pred(i) ? 1 : 0;
-  const long long excl = block_excl_scan(c, sh);  // syncs: sel is filled
-  if (excl < k0 + count && excl + c > k0) {
-    long long rank = excl;
-    for (long long i = lo; i < hi && rank < k0 + count; ++i) {
-      if (pred(i)) {
-        if (rank >= k0) sh.sel[rank - k0] = i;
-        ++rank;
-      }
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    c += __popc(__ballot_sync(FULL, i < hi && pred(i)));
+  }
+  __syncthreads();  // sel is filled, wcount free
+  if (lane == 0) sh.wcount[w] = c;
+  __syncthreads();
+  int excl = 0;
+  for (int j = 0; j < w; ++j) excl += sh.wcount[j];
+  if (excl < k0 + count && excl + c > k0) {  // uniform over the warp
+    int rank = excl;
+    for (int base = lo; base < hi && rank < k0 + count; base += 32) {
+      const int i = base + lane;
+      const unsigned bal = __ballot_sync(FULL, i < hi && pred(i));
+      const int rr = rank + __popc(bal & ((1u << lane) - 1u));
+      if (((bal >> lane) & 1u) && rr >= k0 && rr < k0 + count)
+        sh.sel[rr - k0] = i;
+      rank += __popc(bal);
     }
   }
   __syncthreads();
 }
 
-// the k-th true of pred over [0, L), `none` when there is none
+// the k-th true of pred over [0, n), `none` when there is none
 template <class Pred>
-__device__ long long select_kth(const Pred& pred, long long L, long long k,
-                                long long none, Shared& sh) {
-  select_range(pred, L, k, 1, none, sh);
-  const long long r = sh.sel[0];
+__device__ int select_kth(const Pred& pred, int n, int k, int none,
+                          Shared& sh) {
+  select_range(pred, n, k, 1, none, sh);
+  const int r = sh.sel[0];
   __syncthreads();
   return r;
 }
@@ -313,7 +379,7 @@ __device__ long long mutate_num(const uint32_t* sb, long long v,
   const long long bits = minll(krand(sb[SB_NUM + 6], n129), 62);
   const u64 hi_p = 1ULL << maxll(bits - 1, 0);
   const u64 u2 = ((u64)sb[SB_NUM + 7] << 32) | sb[SB_NUM + 8];
-  const u64 lg = bits <= 0 ? 0ULL : (hi_p | (u2 % hi_p));
+  const u64 lg = bits <= 0 ? 0ULL : (hi_p | (u2 & (hi_p - 1)));  // 2^k
   const long long s3 = krand(sb[SB_NUM + 9], 3);
   const u64 uv = (u64)v;
   switch (t) {
@@ -332,153 +398,170 @@ __device__ long long mutate_num(const uint32_t* sb, long long v,
 }
 
 // decimal rendering (num_mutators._render_decimal): digit k of the
-// literal, and the literal's length in *total
-__device__ uint8_t render_digit(long long v, int k, long long* total) {
+// literal, and the literal's length in *total. The magnitude (below
+// 2^63) is cut into base-10^9 limbs once, so each digit takes 32-bit math.
+__device__ uint32_t render_digit(long long v, int k, long long* total) {
   typedef unsigned long long u64;
   const bool neg = v < 0;
   const long long floored = v < -INT64_MAX_ ? -INT64_MAX_ : v;
-  u64 mag = neg ? (u64)(-floored) : (u64)v;
-  uint8_t rev[20];
-  int ndig = 1;
-  for (int j = 0; j < 20; ++j) {
-    rev[j] = (uint8_t)(48 + mag % 10);
-    mag /= 10;
-    if (rev[j] != 48) ndig = j + 1;
-  }
+  const u64 mag = neg ? (u64)(-floored) : (u64)v;
+  const u64 q = mag / 1000000000ULL;
+  const uint32_t r0 = (uint32_t)(mag - q * 1000000000ULL);
+  const uint32_t r1 = (uint32_t)(q % 1000000000ULL);
+  const uint32_t r2 = (uint32_t)(q / 1000000000ULL);  // below 10
+  // the index of the highest nonzero digit, plus one (1 for zero)
+  auto ndigits = [](uint32_t x) {
+    int d = 1;
+    for (int e = 1; e < 10; ++e) d = x >= POW10[e] ? e + 1 : d;
+    return d;
+  };
+  const int ndig = r2 ? 19 : (r1 ? 9 + ndigits(r1) : ndigits(r0));
   *total = ndig + (neg ? 1 : 0);
   if (k >= *total) return 0;
   if (k == 0 && neg) return 45;
-  const long long idx = clampll(ndig - 1 - (k - (neg ? 1 : 0)), 0, 19);
-  return rev[idx];
+  const int j = (int)clampll(ndig - 1 - (k - (neg ? 1 : 0)), 0, 19);
+  const uint32_t limb = j < 9 ? r0 : (j < 18 ? r1 : (j == 18 ? r2 : 0u));
+  return 48 + (limb / POW10[j < 9 ? j : (j < 18 ? j - 9 : 0)]) % 10u;
 }
 
 // --- the kernel -------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+template <bool SMEM>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 case_rounds_kernel(const int64_t* keys, const uint8_t* data,
                    const int32_t* n_in, const int32_t* scores_in,
-                   const int32_t* pri, const int32_t* rounds_in, Tables tb,
+                   const int32_t* pri, const int32_t* rounds_in,
+                   const int32_t* order, Tables tb,
                    uint8_t* out, uint8_t* scratch, int32_t* n_out,
-                   int32_t* scores_out, int32_t* log_out, int L_) {
+                   int32_t* scores_out, int32_t* log_out, int L) {
   __shared__ Shared sh;
+  extern __shared__ __align__(16) uint8_t rows_s[];
   const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-  const long long L = L_;
-  uint8_t* out_row = out + b * L;
-  uint8_t* scr_row = scratch + b * L;
+  const int b = order[blockIdx.x];  // the rows with most rounds start first
+  const size_t row0 = (size_t)b * (size_t)L;
+  const uint8_t* in_row = data + row0;
+  uint8_t* out_row = out + row0;
+  uint8_t* scr_row = SMEM ? nullptr : scratch + row0;
   uint32_t ks0, ks1, kv0, kv1;
-  erl::fold_in((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1], TAG_SITE,
-               ks0, ks1);
-  erl::fold_in((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1], TAG_PERM,
-               kv0, kv1);
-  if (tid < M) sh.scores[tid] = scores_in[b * M + tid];
+  fold_in((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1], TAG_SITE, ks0,
+          ks1);
+  fold_in((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1], TAG_PERM, kv0,
+          kv1);
+  if (tid < M) {
+    sh.scores[tid] = scores_in[(size_t)b * M + tid];
+    sh.pri[tid] = pri[tid];
+  }
   if (tid < R_MAX) sh.log[tid] = -1;
-  long long n = n_in[b];
+  int n = (int)clampll(n_in[b], 0, L);
   const int R = (int)clampll(rounds_in[b], 0, R_MAX);
-  const uint8_t* cur = data + b * L;
+  const uint8_t* cur = in_row;
+  if (SMEM) {
+    for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16)
+      store16(rows_s + i0, load16(in_row + i0));
+    cur = rows_s;
+  }
   const uint32_t* sb = sh.sb;
   __syncthreads();
 
   for (int r = 0; r < R; ++r) {
-    uint8_t* dst = ((R - 1 - r) & 1) == 0 ? out_row : scr_row;
-    const uint64_t vbase = (uint64_t)(r * VB_ROWS) * (uint64_t)L;
-    auto vword = [&](int row, long long i) {
-      return erl::threefry_word(kv0, kv1, vbase + (uint64_t)row * L + i);
+    uint8_t* dst = SMEM ? rows_s + ((r & 1) ? 0 : L)
+                        : (((R - 1 - r) & 1) == 0 ? out_row : scr_row);
+    const uint32_t vbase = (uint32_t)(r * VB_ROWS) * (uint32_t)L;
+    auto vword = [&](int row, int i) {
+      return threefry_word(
+          kv0, kv1,
+          (uint64_t)(vbase + (uint32_t)row * (uint32_t)L + (uint32_t)i));
     };
     if (tid < SB_ROW)
-      sh.sb[tid] = erl::threefry_word(ks0, ks1, (uint64_t)(r * SB_ROW + tid));
+      sh.sb[tid] = threefry_word(ks0, ks1, (uint64_t)(r * SB_ROW + tid));
 
-    // ---- tables: line starts, digit runs, widenable bytes, sizer kinds
-    auto start_at = [&](long long i) {
-      return i < n && (i == 0 || cur[i - 1] == 10);
-    };
-    auto digit_start_at = [&](long long i) {
-      return i < n && is_digit_byte(cur[i]) &&
-             !(i > 0 && is_digit_byte(cur[i - 1]));
-    };
-    // the value of sizer kind kk at i (int32, forward bytes wrap mod L)
-    auto sz_val = [&](int kk, long long i) -> long long {
-      const uint32_t c = cur[i], b1 = cur[(i + 1) % L], b2 = cur[(i + 2) % L],
-                     b3 = cur[(i + 3) % L];
-      uint32_t v;
-      switch (kk) {
-        case 0: v = c; break;
-        case 1: v = c * 256u + b1; break;
-        case 2: v = b1 * 256u + c; break;
-        case 3: v = ((c * 256u + b1) * 256u + b2) * 256u + b3; break;
-        default: v = ((b3 * 256u + b2) * 256u + b1) * 256u + c; break;
-      }
-      return (long long)(int32_t)v;
-    };
-    auto sz_width = [](int kk) { return kk == 0 ? 1 : (kk <= 2 ? 2 : 4); };
-    auto sz_cand = [&](int kk, long long i) {
-      const long long w = sz_width(kk);
-      if (!(i < n && i + w <= n)) return false;
-      const long long vv = sz_val(kk, i);
-      if (vv <= 2) return false;
-      const long long dlt = wrap32(n - (vv + i + w));
-      return kk == 0 ? (dlt >= 0 && dlt <= 8)
-                     : (dlt == 0 || dlt == 1 || dlt == 2 || dlt == 4 ||
-                        dlt == 8);
-    };
-    int c_start = 0, c_dstart = 0, c_wide = 0, c_sz[5] = {0, 0, 0, 0, 0};
-    for (long long i = tid; i < L; i += THREADS) {
-      if (i >= n) break;
-      const uint8_t c = cur[i];
-      c_start += start_at(i);
-      c_dstart += digit_start_at(i);
-      c_wide += (c & 0x3F) == c;
-      for (int kk = 0; kk < 5; ++kk) c_sz[kk] += sz_cand(kk, i);
-    }
-    const long long nlines = block_sum(c_start, sh);
-    const long long run_count = block_sum(c_dstart, sh);
-    const bool any_wide = block_sum(c_wide, sh) > 0;
-    long long sz_cnt[5], sz_total = 0;
-    for (int kk = 0; kk < 5; ++kk) {
-      sz_cnt[kk] = block_sum(c_sz[kk], sh);
-      sz_total += sz_cnt[kk];
-    }
-    const bool nonempty = n > 0;
-    const bool text = nonempty && !binarish(cur, n, L);
-
-    // ---- weighted pick: the first index among the largest draws
-    bool pred[10];
-    pred[P_NONEMPTY] = nonempty;
-    pred[P_PAIR] = n >= 2;
-    pred[P_HAS_DIGIT] = run_count > 0 && nonempty;
-    pred[P_TEXT] = text;
-    pred[P_TEXT_2L] = text && nlines >= 2;
-    pred[P_TEXT_3L] = text && nlines >= 3;
-    pred[P_WIDENABLE] = any_wide && nonempty;
-    pred[P_NEVER] = false;
-    pred[P_SIZERQ] = sz_total > 0;
-    pred[P_N4] = n >= 4;
-    auto draw = [&](int m) -> long long {
-      const long long bound = maxll((long long)sh.scores[m] * pri[m], 1);
-      return (long long)(sb[m] % (uint32_t)bound);
-    };
-    long long best = -1;
-    int applied = M;
-    for (int m = 0; m < M; ++m) {
-      if (pred[PRED_OF[m]] && pri[m] > 0) {
-        const long long dm = draw(m);
-        if (dm > best) {
-          best = dm;
-          applied = m;
+    // ---- tables, one pass: line starts, digit-run starts, widenable
+    // bytes, the five sizer kinds (the barrier pair publishes sb too)
+    const uint32_t* cur32 = reinterpret_cast<const uint32_t*>(cur);
+    int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    {
+      const int nw = L >> 2, nwn = (n + 3) >> 2;
+      for (int k = tid; k < nwn; k += THREADS) {
+        const uint32_t wk = cur32[k];
+        const uint32_t wn = cur32[k + 1 < nw ? k + 1 : 0];  // wraps mod L
+        const uint32_t wp = k > 0 ? cur32[k - 1] : 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * k + j;
+          if (i < n) {
+            const uint32_t c = (wk >> (8 * j)) & 0xFFu;
+            const uint32_t pv =
+                j == 0 ? wp >> 24 : (wk >> (8 * (j - 1))) & 0xFFu;
+            const uint32_t win =
+                j == 0 ? wk : __funnelshift_r(wk, wn, 8u * j);
+            cnt[0] += (i == 0 || pv == 10u);
+            cnt[1] += is_digit(c) && !(i > 0 && is_digit(pv));
+            cnt[2] += (c & 0x3Fu) == c;
+#pragma unroll
+            for (int kk = 0; kk < 5; ++kk)
+              cnt[3 + kk] += sz_cand(kk, win, i, n);
+          }
         }
       }
     }
-    const bool any_app = applied < M;
-    if (!any_app) applied = 0;
-    const long long d_app = draw(applied);
+    block_sum8(cnt, sh);
+    const int nlines = cnt[0], run_count = cnt[1];
+    const bool any_wide = cnt[2] > 0;
+    int sz_total = 0;
+#pragma unroll
+    for (int kk = 0; kk < 5; ++kk) sz_total += cnt[3 + kk];
+    const bool nonempty = n > 0;
+    const bool text = nonempty && !binarish(cur, n, L);
+
+    auto start_at = [&](int i) { return i == 0 || cur[i - 1] == 10; };
+    auto digit_start_at = [&](int i) {
+      return is_digit(cur[i]) && !(i > 0 && is_digit(cur[i - 1]));
+    };
+
+    // ---- weighted pick: the first index among the largest draws
+    unsigned predm = 0;
+    predm |= (unsigned)nonempty << P_NONEMPTY;
+    predm |= (unsigned)(n >= 2) << P_PAIR;
+    predm |= (unsigned)(run_count > 0 && nonempty) << P_HAS_DIGIT;
+    predm |= (unsigned)text << P_TEXT;
+    predm |= (unsigned)(text && nlines >= 2) << P_TEXT_2L;
+    predm |= (unsigned)(text && nlines >= 3) << P_TEXT_3L;
+    predm |= (unsigned)(any_wide && nonempty) << P_WIDENABLE;
+    predm |= (unsigned)(sz_total > 0) << P_SIZERQ;
+    predm |= (unsigned)(n >= 4) << P_N4;
+    // warp 0: lane m draws for mutator m; a warp reduction keeps the first
+    // index among the largest draws of the applicable ones
+    if (tid < 32) {
+      long long key = -1;
+      int idx = tid;
+      if (tid < M) {
+        const long long bound =
+            maxll((long long)sh.scores[tid] * sh.pri[tid], 1);
+        const uint32_t dm = sb[tid] % (uint32_t)bound;
+        sh.draws[tid] = dm;
+        if (((predm >> PRED_OF[tid]) & 1u) && sh.pri[tid] > 0) key = dm;
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const long long k2 = __shfl_down_sync(FULL, key, o);
+        const int i2 = __shfl_down_sync(FULL, idx, o);
+        if (k2 > key || (k2 == key && i2 < idx)) {
+          key = k2;
+          idx = i2;
+        }
+      }
+      if (tid == 0) sh.pick = key >= 0 ? idx : M;
+    }
 
     // ---- the applied mutator's program
     Prog p = {};
     if (tid < SCRATCH) sh.lit[tid] = 0;
-    __syncthreads();
+    __syncthreads();  // the pick and the zeroed literal row
+    const bool any_app = sh.pick < M;
+    const int applied = any_app ? sh.pick : 0;
+    const long long d_app = sh.draws[applied];
     auto line_start = [&](long long k) -> long long {
       if (k < 0 || k >= nlines) return 0;
-      return select_kth(start_at, L, k, 0, sh);
+      return select_kth(start_at, n, (int)k, 0, sh);
     };
     auto line_span = [&](long long k, long long& s, long long& len) {
       k = minll(maxll(k, 0), maxll(nlines - 1, 0));
@@ -532,15 +615,17 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
           break;
         case UW: {
           // first position of the largest key; a key is the byte's vector
-          // word where the byte is widenable, else 0
-          unsigned long long best_key = 0;
-          for (long long i = tid; i < L; i += THREADS) {
-            const uint8_t c = cur[i];
-            const uint32_t key =
-                (i < n && (c & 0x3F) == c) ? vword(VB_WIDE, i) : 0u;
-            const unsigned long long packed =
-                ((unsigned long long)key << 32) | (0xFFFFFFFFu - (uint32_t)i);
-            best_key = packed > best_key ? packed : best_key;
+          // word where the byte is widenable, else 0 (position 0 holds at
+          // least key 0, so a row with no widenable byte widens at 0)
+          unsigned long long best_key = 0xFFFFFFFFull;
+          for (int i = tid; i < n; i += THREADS) {
+            const uint32_t c = cur[i];
+            if ((c & 0x3Fu) == c) {
+              const unsigned long long packed =
+                  ((unsigned long long)vword(VB_WIDE, i) << 32) |
+                  (0xFFFFFFFFu - (uint32_t)i);
+              best_key = packed > best_key ? packed : best_key;
+            }
           }
           const long long pos_uw =
               0xFFFFFFFFu - (uint32_t)(block_max64(best_key, sh) & 0xFFFFFFFFu);
@@ -560,32 +645,33 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
         }
         case NUM: {
           const long long target = run_count - 1 - krand(sb[SB_POS], run_count);
-          const long long a = select_kth(digit_start_at, L, target, 0, sh);
+          const int a = select_kth(digit_start_at, n, (int)target, 0, sh);
           // first non-digit at or after a (n when the digits run to L)
-          long long b_loc = L;
-          for (long long i = a + tid; i < L; i += THREADS) {
-            if (!(i < n && is_digit_byte(cur[i]))) {
+          int b_loc = L;
+          for (int i = a + tid; i < L; i += THREADS) {
+            if (!(i < n && is_digit(cur[i]))) {
               b_loc = i;
               break;
             }
           }
-          const long long b_first = (long long)(0xFFFFFFFFu - (uint32_t)(
+          const int b_first = (int)(0xFFFFFFFFu - (uint32_t)(
               block_max64(0xFFFFFFFFu - (uint32_t)b_loc, sh) & 0xFFFFFFFFu));
-          const long long b_end = b_first >= L ? n : b_first;
-          long long dashes = 0;
+          const int b_end = b_first >= L ? n : b_first;
+          int dashes = 0;
           while (a - 1 - dashes >= 0 && cur[a - 1 - dashes] == 45) ++dashes;
           unsigned long long mag = 0;
+          // a + k < b_end <= L: no wrap
           for (int k = 0; k < MAX_PARSE_DIGITS; ++k)
             if (a + k < b_end)
               mag = mag * 10ULL +
-                    (unsigned long long)(long long)(cur[(a + k) % L] - 48);
+                    (unsigned long long)(long long)((int)cur[a + k] - 48);
           const long long value =
               dashes > 0 ? (long long)(0ULL - mag) : (long long)mag;
           const long long nv = mutate_num(sb, value, tb);
           long long total = 0;
-          const uint8_t dig = render_digit(nv, tid < RENDER ? tid : RENDER,
-                                           &total);
-          if (tid < RENDER) sh.lit[tid] = dig;
+          const uint32_t dig = render_digit(nv, tid < RENDER ? tid : RENDER,
+                                            &total);
+          if (tid < RENDER) sh.lit[tid] = (uint8_t)dig;
           p.kind = K_SPLICE; p.pos = a - dashes; p.drop = b_end - (a - dashes);
           p.src = SRC_LIT; p.lit_len = total; p.delta = 2;
           break;
@@ -607,10 +693,10 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
         }
         case LDS: {
           const long long start = kerand(sb[SB_POS], nlines);
-          const long long cnt = kerand(sb[SB_LEN], nlines - start + 1);
+          const long long cnt_l = kerand(sb[SB_LEN], nlines - start + 1);
           long long s0, l0, s2, l2;
           line_span(start - 1, s0, l0);
-          line_span(start - 1 + cnt - 1, s2, l2);
+          line_span(start - 1 + cnt_l - 1, s2, l2);
           p.kind = K_SPLICE; p.pos = s0; p.drop = s2 + l2 - s0; p.delta = 1;
           break;
         }
@@ -687,15 +773,18 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
           // one uniform draw over every candidate, kind-major
           const long long r_sz = krand(sb[SB_LENPICK], sz_total);
           long long a = 0, w = 1, kind = 0, val = 0, running = 0;
+#pragma unroll
           for (int kk = 0; kk < 5; ++kk) {
-            if (r_sz >= running && r_sz < running + sz_cnt[kk]) {
-              auto cand = [&](long long i) { return sz_cand(kk, i); };
-              a = select_kth(cand, L, r_sz - running, 0, sh);
+            if (r_sz >= running && r_sz < running + cnt[3 + kk]) {
+              auto cand = [&](int i) {
+                return sz_cand(kk, window4(cur, L, i), i, n);
+              };
+              a = select_kth(cand, n, (int)(r_sz - running), 0, sh);
               w = sz_width(kk);
               kind = kk;
-              val = sz_val(kk, a);
+              val = (int32_t)sz_value(kk, window4(cur, L, (int)a));
             }
-            running += sz_cnt[kk];
+            running += cnt[3 + kk];
           }
           const bool found = sz_total > 0;
           const long long len_end = minll(wrap32(val + a + w), n);
@@ -730,23 +819,25 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
         case FT: case FN: case FO: {
           const long long p_f = krand(sb[SB_FUSEP], n);
           const long long k_f =
-              minll(1 + krand_log(sb[SB_FUSEDEP], sb[SB_LOG2], 3), MATCH_DEPTH);
-          uint8_t probe[MATCH_DEPTH];
-          for (int dd = 0; dd < MATCH_DEPTH; ++dd)
-            probe[dd] = cur[clampll(p_f + dd, 0, L - 1)];
-          auto match = [&](long long i) {
-            if (!(i < n && i != p_f)) return false;
-            for (int dd = 0; dd < k_f; ++dd)
-              if (cur[(i + dd) % L] != probe[dd]) return false;
-            return true;
+              minll(1 + krand_log(sb[SB_FUSEDEP], sb[SB_LOG2], 3), 4);
+          // the probe reads bytes p_f + dd clamped to the row; a match
+          // compares the first k_f bytes of the window at i (mod L)
+          uint32_t probe = 0;
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd)
+            probe |= (uint32_t)cur[clampll(p_f + dd, 0, L - 1)] << (8 * dd);
+          const uint32_t kmask =
+              k_f >= 4 ? 0xFFFFFFFFu : (1u << (8 * k_f)) - 1u;
+          auto match = [&](int i) {
+            return i != p_f && ((window4(cur, L, i) ^ probe) & kmask) == 0;
           };
           int c = 0;
-          for (long long i = tid; i < n; i += THREADS) c += match(i);
+          for (int i = tid; i < n; i += THREADS) c += match(i);
           const long long tot = block_sum(c, sh);
           const long long r_f = krand(sb[SB_FUSEPICK], tot);
           long long q;
           if (tot > 0) {
-            q = select_kth(match, L, r_f, 0, sh);
+            q = select_kth(match, n, (int)r_f, 0, sh);
           } else {
             q = krand(sb[SB_FUSEFB], maxll(n - 1, 1));
             q += q >= p_f ? 1 : 0;
@@ -769,146 +860,100 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
     }
     __syncthreads();  // literal row written
 
-    // ---- apply into dst
-    long long n_sp = n;
-    if (p.kind == K_PERM_BYTES) {
-      const long long wf = minll(PERM_WINDOW, L);
-      const long long span = clampll(p.pl, 0, wf);
-      for (long long w = tid; w < wf; w += THREADS) {
-        sh.win[w] = cur[pymod(p.ps + w, L)];
-        if (w < span) sh.vrow[w] = vword(VB_FY, w);
-      }
-      __syncthreads();
-      if (tid == 0) {
-        for (long long j = span - 1; j >= 1; --j) {
-          const uint32_t rr = sh.vrow[j] % (uint32_t)(j + 1);
-          const uint8_t t = sh.win[j];
-          sh.win[j] = sh.win[rr];
-          sh.win[rr] = t;
-        }
-      }
-      __syncthreads();
-      for (long long i = tid; i < L; i += THREADS)
-        dst[i] = (i >= p.ps && i < p.ps + span) ? sh.win[i - p.ps] : cur[i];
-    } else if (p.kind == K_PERM_LINES) {
-      const long long f = clampll(p.ps, 0, maxll(nlines - 1, 0));
-      const long long cnt = clampll(p.pl, 0, clampll(nlines - f, 0, PERM_LINES_W));
+    // ---- apply into dst, 16 bytes per thread and store
+    Apply ap = make_apply(p.kind, p.pos, p.drop, p.src, p.src_start,
+                          p.src_len, p.reps, p.lit_len, p.a1, p.l1, p.l2,
+                          p.ps, p.pl, p.mask_op, p.mask_prob, n, L, SCRATCH);
+    ap.k0 = kv0;
+    ap.k1 = kv1;
+    ap.wbase = vbase;
+    if (p.kind == K_PERM_BYTES)
+      perm_window<THREADS>(ap, cur, p.ps, p.pl, sh.win, sh.vrow);
+    if (p.kind == K_PERM_LINES) {
+      const int f = (int)clampll(p.ps, 0, maxll(nlines - 1, 0));
+      const int cnt_w =
+          (int)clampll(p.pl, 0, clampll(nlines - f, 0, PERM_LINES_W));
       // starts of window lines f .. f+64 (0 where there is no such line)
-      select_range(start_at, L, f, PERM_LINES_W + 1, 0, sh);
+      select_range(start_at, n, f, PERM_LINES_W + 1, 0, sh);
       if (tid < PERM_LINES_W) {
-        const long long w = tid;
-        long long len = 0;
-        if (w < cnt && f + w < nlines) {
+        const int w = tid;
+        int len = 0;
+        if (w < cnt_w && f + w < nlines) {
           len = (f + w == nlines - 1 ? n : sh.sel[w + 1]) - sh.sel[w];
-          len = maxll(len, 0);
+          len = len > 0 ? len : 0;
         }
         sh.lens_w[w] = len;
         sh.keys[w] = w < L ? vword(VB_LPERM, w) : 0u;
       }
       __syncthreads();
-      if (tid == 0) {
+      if (tid < PERM_LINES_W) {
         // window line j of the output is the j-th largest key among the
-        // first cnt lines (first index among equal keys)
-        unsigned long long used = 0;
-        long long acc = 0;
+        // first cnt_w lines (first index among equal keys): line w's rank
+        // counts the keys before it; the lines past cnt_w keep their place
+        const int w = tid;
+        int rank = w;
+        if (w < cnt_w) {
+          rank = 0;
+          const uint32_t kw = sh.keys[w];
+          for (int v = 0; v < cnt_w; ++v)
+            rank += sh.keys[v] > kw || (sh.keys[v] == kw && v < w);
+        }
+        sh.order[rank] = w;
+      }
+      __syncthreads();
+      if (tid < PERM_LINES_W) {
+        sh.plen[tid] = sh.lens_w[sh.order[tid]];
+        sh.pstart[tid] = sh.sel[sh.order[tid]];
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int acc = 0;
         for (int j = 0; j < PERM_LINES_W; ++j) {
-          int pick = j;
-          if (j < cnt) {
-            long long mx = -1;
-            for (int w = 0; w < cnt; ++w) {
-              if (!((used >> w) & 1ULL) && (long long)sh.keys[w] > mx) {
-                mx = sh.keys[w];
-                pick = w;
-              }
-            }
-            used |= 1ULL << pick;
-          }
-          sh.plen[j] = sh.lens_w[pick];
-          sh.pstart[j] = sh.sel[pick];
           acc += sh.plen[j];
           sh.cum[j] = acc;
         }
       }
       __syncthreads();
-      const long long win_start = sh.sel[0];
-      const long long total = cnt > 0 ? sh.cum[cnt - 1] : 0;
-      for (long long i = tid; i < L; i += THREADS) {
-        const long long rel = i - win_start;
-        uint8_t v = cur[i];
-        if (cnt > 0 && rel >= 0 && rel < total) {
-          int lo = 0, hi = PERM_LINES_W;  // first j with cum[j] > rel
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (sh.cum[mid] > rel) hi = mid; else lo = mid + 1;
-          }
-          const int j = lo < PERM_LINES_W ? lo : PERM_LINES_W - 1;
-          const long long prev = sh.cum[j] - sh.plen[j];
-          v = cur[pymod(rel - prev + sh.pstart[j], L)];
+      const int ws = sh.sel[0];
+      const int we = ws + (cnt_w > 0 ? sh.cum[cnt_w - 1] : 0);
+      for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16) {
+        if (i0 + 16 <= ws || i0 >= we) {
+          store16(dst + i0, load16(cur + i0));
+          continue;
         }
-        dst[i] = v;
+        uint32_t o[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int i = i0 + j;
+          uint32_t v = cur[i];
+          if (i >= ws && i < we) {
+            const int rel = i - ws;
+            int lo = 0, hi = PERM_LINES_W;  // first j with cum[j] > rel
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (sh.cum[mid] > rel) hi = mid; else lo = mid + 1;
+            }
+            const int jj = lo < PERM_LINES_W ? lo : PERM_LINES_W - 1;
+            const int prev = sh.cum[jj] - sh.plen[jj];
+            // a byte of line pstart[jj], inside [0, n): below 2L
+            v = cur[wrap_hi(rel - prev + sh.pstart[jj], L)];
+          }
+          put_byte(o, j, v);
+        }
+        store16(dst + i0, make_uint4(o[0], o[1], o[2], o[3]));
       }
     } else {
-      // splice geometry (fused._splice_geometry)
-      const long long pos_c = clampll(p.pos, 0, n);
-      const long long drop_c = clampll(p.drop, 0, n - pos_c);
-      long long rlen = p.src == SRC_SPAN ? p.src_len * p.reps
-                       : (p.src == SRC_LIT ? p.lit_len * maxll(p.reps, 1) : 0);
-      rlen = clampll(rlen, 0, L);
-      const long long sl_c = maxll(p.src_len, 1);
-      const long long ll_c = maxll(p.lit_len, 1);
-      const long long end_ins = pos_c + rlen;
-      n_sp = clampll(n - drop_c + rlen, 0, L);
-      for (long long i = tid; i < L; i += THREADS) {
-        uint8_t v = cur[i];
-        if (p.kind == K_SPLICE) {
-          if (i >= n_sp) {
-            v = 0;
-          } else if (i >= pos_c) {
-            if (i < end_ins) {
-              const long long off = i - pos_c;
-              if (p.src == SRC_LIT) {
-                const long long m = off % ll_c;
-                v = m < SCRATCH ? sh.lit[m] : 0;
-              } else {
-                v = cur[pymod(p.src_start + off % sl_c, L)];
-              }
-            } else {
-              v = cur[pymod(i - rlen + drop_c, L)];
-            }
-          }
-        } else if (p.kind == K_SWAP) {
-          if (i >= p.a1 && i < p.a1 + p.l2)
-            v = cur[pymod(i + p.l1, L)];
-          else if (i >= p.a1 + p.l2 && i < p.a1 + p.l2 + p.l1)
-            v = cur[pymod(i - p.l2, L)];
-        } else if (p.kind == K_MASK) {
-          if (i >= p.ps && i < p.ps + p.pl) {
-            const uint32_t occ = vword(VB_MASK0, i) % 100u;
-            const bool occurs = p.mask_prob == 1 ? occ != 0
-                                                 : (long long)occ < p.mask_prob;
-            if (occurs) {
-              if (p.mask_op >= 0 && p.mask_op <= 2) {
-                const uint8_t one = (uint8_t)(1u << (vword(VB_MASK1, i) % 8u));
-                v = p.mask_op == 0 ? (uint8_t)(v & ~one)
-                    : (p.mask_op == 1 ? (uint8_t)(v | one)
-                                      : (uint8_t)(v ^ one));
-              } else {
-                v = (uint8_t)(vword(VB_MASK2, i) & 0xFFu);
-              }
-            }
-          }
-        }
-        dst[i] = v;
-      }
+      for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16)
+        store16(dst + i0, apply_chunk(ap, cur, i0, sh.lit, sh.win));
     }
     __syncthreads();  // dst complete
 
     // ---- score update (scheduler.adjust_scores)
-    const long long n1 = p.kind == K_SPLICE ? n_sp : n;
+    const int n1 = ap.n_out;
     const long long delta_f =
         applied == NUM ? (binarish(dst, n1, L) ? -1 : 2) : p.delta;
     if (tid < M) {
-      const long long dm = draw(tid);
+      const long long dm = sh.draws[tid];
       const bool tried =
           any_app && (dm > d_app || (dm == d_app && tid < applied));
       const long long delta =
@@ -922,22 +967,53 @@ case_rounds_kernel(const int64_t* keys, const uint8_t* data,
     __syncthreads();  // scores, scalar words and rows free for the next round
   }
 
-  if (R == 0)
-    for (long long i = tid; i < L; i += THREADS) out_row[i] = cur[i];
-  if (tid < M) scores_out[b * M + tid] = sh.scores[tid];
-  if (tid < R_MAX) log_out[b * R_MAX + tid] = sh.log[tid];
+  if (SMEM || R == 0)
+    for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16)
+      store16(out_row + i0, load16(cur + i0));
+  if (tid < M) scores_out[(size_t)b * M + tid] = sh.scores[tid];
+  if (tid < R_MAX) log_out[(size_t)b * R_MAX + tid] = sh.log[tid];
   if (tid == 0) n_out[b] = (int32_t)n;
+}
+
+// the shared-memory path's attribute, set once per process for the widest
+// row it takes
+cudaError_t configure() {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      case_rounds_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * SMEM_MAX_L);
+  return set;
 }
 
 }  // namespace
 
+extern "C" int case_rounds_smem_max_l() { return SMEM_MAX_L; }
+
+// resident CTAs per SM for rows of L bytes (negative: a CUDA error)
+extern "C" int case_rounds_ctas_per_sm(int L) {
+  int n = 0;
+  cudaError_t e = configure();
+  if (e == cudaSuccess)
+    e = L <= SMEM_MAX_L
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, case_rounds_kernel<true>, THREADS, 2 * L)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, case_rounds_kernel<false>, THREADS, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// order: the rows in the order their CTAs are launched (a permutation);
+// scratch: a second B x L buffer, read only when L > SMEM_MAX_L
 extern "C" int case_rounds_launch(
     const void* keys, const void* data, const void* n, const void* scores,
-    const void* pri, const void* rounds, const void* funny_t,
+    const void* pri, const void* rounds, const void* order,
+    const void* funny_t,
     const void* funny_l, int n_funny, const void* itbl, int n_itbl,
     const void* pay_t, const void* pay_l, int n_pay, int pay_w,
     const void* layout, void* out, void* scratch, void* n_out,
     void* scores_out, void* log, int B, int L, void* stream) {
+  if (B <= 0 || L <= 0) return (int)cudaGetLastError();
+  if (L % 16 != 0 || (L > SMEM_MAX_L && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   Tables tb;
   tb.funny_t = (const uint8_t*)funny_t;
   tb.funny_l = (const int32_t*)funny_l;
@@ -950,12 +1026,28 @@ extern "C" int case_rounds_launch(
   tb.n_pay = n_pay;
   tb.pay_w = pay_w;
   tb.layout = (const int32_t*)layout;
-  if (B > 0 && L > 0) {
-    case_rounds_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)keys, (const uint8_t*)data, (const int32_t*)n,
-        (const int32_t*)scores, (const int32_t*)pri, (const int32_t*)rounds,
-        tb, (uint8_t*)out, (uint8_t*)scratch, (int32_t*)n_out,
-        (int32_t*)scores_out, (int32_t*)log, L);
+  const int64_t* k = (const int64_t*)keys;
+  const uint8_t* d = (const uint8_t*)data;
+  const int32_t* ni = (const int32_t*)n;
+  const int32_t* si = (const int32_t*)scores;
+  const int32_t* pr = (const int32_t*)pri;
+  const int32_t* ri = (const int32_t*)rounds;
+  const int32_t* od = (const int32_t*)order;
+  uint8_t* o = (uint8_t*)out;
+  uint8_t* sc = (uint8_t*)scratch;
+  int32_t* no = (int32_t*)n_out;
+  int32_t* so = (int32_t*)scores_out;
+  int32_t* lo = (int32_t*)log;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L <= SMEM_MAX_L) {
+    const int dyn = 2 * L;
+    const cudaError_t e = configure();
+    if (e != cudaSuccess) return (int)e;
+    case_rounds_kernel<true><<<B, THREADS, dyn, s>>>(
+        k, d, ni, si, pr, ri, od, tb, o, sc, no, so, lo, L);
+  } else {
+    case_rounds_kernel<false><<<B, THREADS, 0, s>>>(
+        k, d, ni, si, pr, ri, od, tb, o, sc, no, so, lo, L);
   }
   return (int)cudaGetLastError();
 }

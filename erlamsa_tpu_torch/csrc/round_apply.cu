@@ -14,161 +14,119 @@
 // written, plus 64 B of params, 48 B of literal and 16 B of key; the few
 // threefry words a MASK or PERM_BYTES round needs are cheap next to that.
 //
-// Design (first version, simple and right): one CTA per sample, threads
-// striding over the row with direct indexing where the TPU kernel used
-// rolls. The row stays in device memory (capacities reach 1,000,000 B);
-// only the <= 256-byte Fisher-Yates window and its random words live in
-// shared memory, where one thread runs the serial swap sequence.
+// Design (row_apply.cuh holds the apply, shared with the case kernel):
+// one CTA per sample. Every thread assembles 16 consecutive output bytes
+// and stores them with one 16-byte store; index math is 32-bit, the
+// program's geometry reduced once per row, so a splice or swap source
+// wraps by a conditional subtract and a repeat position advances by one
+// with a wrap (one modulo per 16 bytes, none per byte). A row whose kind
+// copies, masks or permutes a window reads its 16-byte chunks straight
+// from device memory (MASK and PERM_BYTES change bytes in place; the
+// <= 256-byte Fisher-Yates window and its draws live in shared memory,
+// where one thread runs the serial swap sequence). A SPLICE or SWAP row
+// reads its bytes out of order, so it is first staged in shared memory
+// with 16-byte loads when L <= SMEM_MAX_L (the 65536 class and below);
+// wider rows (262144, 1,000,000) read their sources from device memory
+// through the same code. The choice depends on L alone. L must be a
+// multiple of 16, as every capacity class is.
 //
-// Arithmetic: the params are int32 in the engine; index math here runs in
-// 64 bits. Both agree whenever the int32 sums and products of the params
-// do not overflow, which holds for every program the engine draws
-// (0 <= n <= L <= 1,000,000; span repeats below 2^10, literal repeats of
-// at most 48 bytes below 2^17).
+// Arithmetic: the params are int32 in the engine; the geometry is taken
+// in 64 bits once per row and is exact for any int32 params. Domain:
+// 0 <= n <= L (n is clamped there, as the engine guarantees it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "threefry.cuh"
+#include "row_apply.cuh"
 
 namespace {
 
-constexpr int K_SPLICE = 1;
-constexpr int K_SWAP = 2;
-constexpr int K_PERM_BYTES = 3;
-constexpr int K_MASK = 5;
-constexpr int SRC_SPAN = 1;
-constexpr int SRC_LIT = 2;
-constexpr int SCRATCH = 48;
-constexpr int FY_CAP = 256;
+using namespace erl;
+
 constexpr int THREADS = 256;
+constexpr int SMEM_MAX_L = 65536;
 
-using erl::threefry_word;
-
-__device__ __forceinline__ long long pymod(long long a, long long m) {
-  long long r = a % m;
-  return r < 0 ? r + m : r;
-}
-
-__device__ __forceinline__ long long clampll(long long x, long long lo,
-                                             long long hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
+template <bool SMEM>
 __global__ void __launch_bounds__(THREADS)
 round_apply_kernel(const uint8_t* __restrict__ data,
                    const int32_t* __restrict__ params,
                    const uint8_t* __restrict__ lit,
                    const int64_t* __restrict__ keys,
                    uint8_t* __restrict__ out, int L) {
-  const long long b = blockIdx.x;
-  const long long LL = L;
-  const uint8_t* d = data + b * LL;
-  uint8_t* o = out + b * LL;
-  const int32_t* P = params + b * 16;
-  const long long kind = P[0], pos = P[1], drop = P[2], src = P[3];
-  const long long src_start = P[4], src_len = P[5], reps = P[6];
-  const long long lit_len = P[7], a1 = P[8], l1 = P[9], l2 = P[10];
-  const long long ps = P[11], plen = P[12], mask_op = P[13];
-  const long long mask_prob = P[14], n = P[15];
-  const uint32_t k0 = (uint32_t)keys[2 * b];
-  const uint32_t k1 = (uint32_t)keys[2 * b + 1];
-
-  __shared__ uint8_t win[FY_CAP];
-  __shared__ uint32_t vrow[FY_CAP];
+  extern __shared__ __align__(16) uint8_t row_s[];
+  __shared__ uint8_t win[PERM_WINDOW];
+  __shared__ uint32_t vrow[PERM_WINDOW];
   __shared__ uint8_t lit_s[SCRATCH];
-
-  if (kind == K_PERM_BYTES) {  // uniform over the block
-    const int wf = L < FY_CAP ? L : FY_CAP;
-    const long long span = clampll(plen, 0, wf);
-    for (int w = threadIdx.x; w < wf; w += blockDim.x) {
-      win[w] = d[pymod(ps + w, LL)];
-      vrow[w] = threefry_word(k0, k1, (uint64_t)(3 * LL + w));
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const size_t off = (size_t)b * (size_t)L;
+  const uint8_t* d = data + off;
+  uint8_t* o = out + off;
+  const int32_t* P = params + (size_t)b * 16;
+  Apply a = make_apply(P[0], P[1], P[2], P[3], P[4], P[5], P[6], P[7], P[8],
+                       P[9], P[10], P[11], P[12], P[13], P[14],
+                       clampll(P[15], 0, L), L, L < SCRATCH ? L : SCRATCH);
+  a.k0 = (uint32_t)keys[2 * b];
+  a.k1 = (uint32_t)keys[2 * b + 1];
+  const uint8_t* cur = d;
+  if (a.kind == K_PERM_BYTES) {  // uniform over the block
+    perm_window<THREADS>(a, d, P[11], P[12], win, vrow);
+  } else if (a.kind == K_SPLICE || a.kind == K_SWAP) {
+    if (tid < SCRATCH) lit_s[tid] = lit[(size_t)b * SCRATCH + tid];
+    if (SMEM) {
+      for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16)
+        store16(row_s + i0, load16(d + i0));
+      cur = row_s;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (long long j = span - 1; j >= 1; --j) {
-        const uint32_t r = vrow[j] % (uint32_t)(j + 1);
-        const uint8_t t = win[j];
-        win[j] = win[r];
-        win[r] = t;
-      }
-    }
-    __syncthreads();
-    for (long long i = threadIdx.x; i < LL; i += blockDim.x)
-      o[i] = (i >= ps && i < ps + span) ? win[i - ps] : d[i];
-    return;
   }
+  for (int i0 = tid * 16; i0 < L; i0 += THREADS * 16)
+    store16(o + i0, apply_chunk(a, cur, i0, lit_s, win));
+}
 
-  if (threadIdx.x < SCRATCH) lit_s[threadIdx.x] = lit[b * SCRATCH + threadIdx.x];
-  __syncthreads();
-
-  // splice geometry (fused._splice_geometry)
-  const long long pos_c = clampll(pos, 0, n);
-  const long long drop_c = clampll(drop, 0, n - pos_c);
-  long long rlen = src == SRC_SPAN ? src_len * reps
-                   : (src == SRC_LIT ? lit_len * (reps > 1 ? reps : 1) : 0);
-  rlen = clampll(rlen, 0, LL);
-  const long long sl_c = src_len > 1 ? src_len : 1;
-  const long long ll_c = lit_len > 1 ? lit_len : 1;
-  const long long end_ins = pos_c + rlen;
-  const long long n_sp = clampll(n - drop_c + rlen, 0, LL);
-  const long long lit_cap = LL < SCRATCH ? LL : SCRATCH;
-
-  for (long long i = threadIdx.x; i < LL; i += blockDim.x) {
-    uint8_t v = d[i];
-    if (kind == K_SPLICE) {
-      if (i >= n_sp) {
-        v = 0;
-      } else if (i >= pos_c) {
-        if (i < end_ins) {
-          const long long off = i - pos_c;
-          if (src == SRC_LIT) {
-            const long long m = off % ll_c;
-            v = m < lit_cap ? lit_s[m] : 0;
-          } else {
-            v = d[pymod(src_start + off % sl_c, LL)];
-          }
-        } else {
-          v = d[pymod(i - rlen + drop_c, LL)];
-        }
-      }
-    } else if (kind == K_SWAP) {
-      if (i >= a1 && i < a1 + l2)
-        v = d[pymod(i + l1, LL)];
-      else if (i >= a1 + l2 && i < a1 + l2 + l1)
-        v = d[pymod(i - l2, LL)];
-    } else if (kind == K_MASK) {
-      if (i >= ps && i < ps + plen) {
-        const uint32_t occurs_n = threefry_word(k0, k1, (uint64_t)i) % 100u;
-        const bool occurs = mask_prob == 1 ? occurs_n != 0
-                                           : (long long)occurs_n < mask_prob;
-        if (occurs) {
-          if (mask_op >= 0 && mask_op <= 2) {
-            const uint32_t bit =
-                threefry_word(k0, k1, (uint64_t)(LL + i)) % 8u;
-            const uint8_t one = (uint8_t)(1u << bit);
-            v = mask_op == 0 ? (uint8_t)(v & ~one)
-                : (mask_op == 1 ? (uint8_t)(v | one) : (uint8_t)(v ^ one));
-          } else {
-            v = (uint8_t)(threefry_word(k0, k1, (uint64_t)(2 * LL + i)) & 0xFFu);
-          }
-        }
-      }
-    }
-    o[i] = v;
-  }
+// the shared-memory path's attribute, set once per process for the widest
+// row it takes
+cudaError_t configure() {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      round_apply_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_MAX_L);
+  return set;
 }
 
 }  // namespace
 
+extern "C" int round_apply_smem_max_l() { return SMEM_MAX_L; }
+
+// resident CTAs per SM for rows of L bytes (negative: a CUDA error)
+extern "C" int round_apply_ctas_per_sm(int L) {
+  int n = 0;
+  cudaError_t e = configure();
+  if (e == cudaSuccess)
+    e = L <= SMEM_MAX_L
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, round_apply_kernel<true>, THREADS, L)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, round_apply_kernel<false>, THREADS, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 extern "C" int round_apply_launch(const void* data, const void* params,
                                   const void* lit, const void* keys,
                                   void* out, int B, int L, void* stream) {
-  if (B > 0 && L > 0) {
-    round_apply_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)data, (const int32_t*)params, (const uint8_t*)lit,
-        (const int64_t*)keys, (uint8_t*)out, L);
+  if (B <= 0 || L <= 0) return (int)cudaGetLastError();
+  if (L % 16 != 0) return (int)cudaErrorInvalidValue;
+  const uint8_t* d = (const uint8_t*)data;
+  const int32_t* p = (const int32_t*)params;
+  const uint8_t* l = (const uint8_t*)lit;
+  const int64_t* k = (const int64_t*)keys;
+  uint8_t* o = (uint8_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L <= SMEM_MAX_L) {
+    const cudaError_t e = configure();
+    if (e != cudaSuccess) return (int)e;
+    round_apply_kernel<true><<<B, THREADS, L, s>>>(d, p, l, k, o, L);
+  } else {
+    round_apply_kernel<false><<<B, THREADS, 0, s>>>(d, p, l, k, o, L);
   }
   return (int)cudaGetLastError();
 }

@@ -20,12 +20,16 @@ Two versions compute the same function: the CUDA kernel
 (csrc/case_rounds.cu) for tensors on a GPU, and ``case_rounds_plain``,
 plain PyTorch, for tensors on the CPU (and as the kernel's yardstick).
 ``case_rounds`` takes the plain version only because its tensors lie on
-the CPU; on a CUDA tensor it launches the kernel or raises.
+the CPU; on a CUDA tensor it launches the kernel or raises. The kernel
+holds a row in shared memory for the whole case when L <= SMEM_MAX_L
+and works on it in device memory otherwise (``round_apply.path``); it
+takes rows whose width is a multiple of 16, as every capacity class is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,8 +48,11 @@ from .round_apply import (
     K_SPLICE,
     K_SWAP,
     SCRATCH,
+    SMEM_MAX_L,
     SRC_LIT,
     SRC_SPAN,
+    aligned,
+    path,
 )
 from .rows import argmax_first, const, positions, select, take, take_table
 from .utf8_mutators import funny_tables
@@ -701,17 +708,23 @@ def case_rounds(keys, data, n, scores, pri, rounds):
     if data.device.type != "cuda":
         raise RuntimeError(f"case_rounds: unsupported device {data.device}")
     B, L = data.shape
+    if L % 16:
+        raise ValueError("case_rounds: the kernel takes rows whose width is a "
+                         f"multiple of 16, got {L}")
     dev = data.device
     out = torch.empty_like(data)
-    scratch = torch.empty_like(data)
+    # the device-memory path ping-pongs between out and a scratch row
+    scratch = torch.empty_like(data) if path(L) == "device" else None
     n_out = torch.empty(B, dtype=torch.int32, device=dev)
     sc_out = torch.empty(B, M, dtype=torch.int32, device=dev)
     log = torch.empty(B, R_MAX, dtype=torch.int32, device=dev)
     if B == 0:
         return out, n_out, sc_out, log
     c = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
-    keys, data = keys.contiguous(), data.contiguous()
+    keys, data = keys.contiguous(), aligned(data.contiguous())
     n_in, sc_in, pri_in, rd_in = c(n), c(scores), c(pri), c(rounds)
+    # CTAs start in the order of their rows' round counts, most first
+    order = torch.argsort(rd_in, descending=True, stable=True).to(torch.int32)
     funny_t, funny_l, itbl, pay_t, pay_l, layout = _tables(dev)
     lib = _load()
     with torch.cuda.device(dev):
@@ -719,10 +732,11 @@ def case_rounds(keys, data, n, scores, pri, rounds):
         rc = lib.case_rounds_launch(
             keys.data_ptr(), data.data_ptr(), n_in.data_ptr(),
             sc_in.data_ptr(), pri_in.data_ptr(), rd_in.data_ptr(),
-            funny_t.data_ptr(), funny_l.data_ptr(), funny_t.shape[0],
-            itbl.data_ptr(), itbl.shape[0], pay_t.data_ptr(),
+            order.data_ptr(), funny_t.data_ptr(), funny_l.data_ptr(),
+            funny_t.shape[0], itbl.data_ptr(), itbl.shape[0], pay_t.data_ptr(),
             pay_l.data_ptr(), pay_t.shape[0], pay_t.shape[1],
-            layout.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            layout.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             n_out.data_ptr(), sc_out.data_ptr(), log.data_ptr(), B, L,
             stream)
     if rc != 0:
@@ -732,6 +746,7 @@ def case_rounds(keys, data, n, scores, pri, rounds):
     return out, n_out, sc_out, log
 
 
+@functools.lru_cache(maxsize=None)
 def _tables(dev):
     """The constant tables as the kernel reads them, on ``dev``: funny
     table and lengths, interesting numbers, payload table and lengths,
@@ -755,11 +770,24 @@ def _load():
         lib = ctypes.CDLL(cuda_build.build("case_rounds"))
         fn = lib.case_rounds_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 8 + [i, p, i, p, p, i, i] + [p] * 6
+        fn.argtypes = ([p] * 9 + [i, p, i, p, p, i, i] + [p] * 6
                        + [i, i, p])
         fn.restype = ctypes.c_int
+        if lib.case_rounds_smem_max_l() != SMEM_MAX_L:
+            raise RuntimeError("case_rounds: the kernel's shared-memory cap "
+                               "differs from SMEM_MAX_L")
         _lib = lib
     return _lib
+
+
+def ctas_per_sm(L: int) -> int:
+    """Resident CTAs per SM of the kernel for rows of L bytes (the CUDA
+    occupancy calculator, on the current card)."""
+    n = _load().case_rounds_ctas_per_sm(L)
+    if n < 0:
+        raise RuntimeError(
+            f"case_rounds: occupancy query failed (cuda error {-n})")
+    return n
 
 
 def case_rounds_plain(keys, data, n, scores, pri, rounds):

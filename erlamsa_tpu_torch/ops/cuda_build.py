@@ -5,6 +5,8 @@ A library is named by the hash of its source and of every shared header
 (csrc/*.cuh), so an edit to either rebuilds it and a stale library is
 never loaded. Builds land in the package's ``_build/`` directory, which
 git ignores; ``build_all`` starts one nvcc per missing library at once.
+Each build keeps ptxas's report (registers, spills, shared memory per
+kernel) beside its library, in ``<library>.ptxas.txt``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def build_all(names) -> dict[str, str]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [toolkit(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+               "-fPIC",
                "-I", CSRC, "-o", tmp, os.path.join(CSRC, name + ".cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -64,6 +67,8 @@ def build_all(names) -> dict[str, str]:
     for name, so, tmp, proc in jobs:
         _out, err = proc.communicate()
         if proc.returncode == 0:
+            with open(so + ".ptxas.txt", "w") as f:
+                f.write(err)
             os.replace(tmp, so)
         else:
             os.unlink(tmp)
@@ -71,6 +76,23 @@ def build_all(names) -> dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def ptxas_report(name: str) -> list[tuple[str, str]]:
+    """(entry, "N registers, S B spill stores, M B smem") for each kernel
+    of csrc/<name>.cu, from the report its build kept."""
+    with open(library_path(name) + ".ptxas.txt") as f:
+        text = f.read()
+    rows, entry, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            rows.append((entry, line.split(":", 1)[1].strip() + "; " + spill))
+            entry = None
+    return rows
 
 
 def build(name: str) -> str:

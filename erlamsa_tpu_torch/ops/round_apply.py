@@ -18,7 +18,10 @@ Two versions compute the same function: the CUDA kernel
 (csrc/round_apply.cu) for tensors on a GPU, and ``round_apply_plain``,
 plain PyTorch, for tensors on the CPU (and as the kernel's yardstick).
 ``round_apply`` takes the plain version only because its tensors lie on
-the CPU; on a CUDA tensor it launches the kernel or raises.
+the CPU; on a CUDA tensor it launches the kernel or raises. The kernel
+stages a row in shared memory when L <= SMEM_MAX_L and reads it from
+device memory otherwise (``path``); it takes rows whose width is a
+multiple of 16, as every capacity class is.
 
 Edge cases follow the TPU kernel, not the JAX engine's composite gather:
 its rolls index modulo L, so a repeated span reads
@@ -40,6 +43,7 @@ K_NONE, K_SPLICE, K_SWAP, K_PERM_BYTES, K_PERM_LINES, K_MASK = range(6)
 SRC_NONE, SRC_SPAN, SRC_LIT = range(3)
 SCRATCH = 48
 FY_CAP = 256  # Fisher-Yates window cap (fused.PERM_WINDOW)
+SMEM_MAX_L = 65536  # widest row the kernels hold in shared memory
 
 PARAM_FIELDS = (
     "kind", "pos", "drop", "src", "src_start", "src_len", "reps", "lit_len",
@@ -56,6 +60,12 @@ def reset_launches() -> None:
     launches = 0
 
 
+def path(L: int) -> str:
+    """Where the CUDA kernels keep a row of L bytes: "shared" memory for
+    the 65536 class and below, "device" memory above."""
+    return "shared" if L <= SMEM_MAX_L else "device"
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -64,8 +74,27 @@ def _load():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if lib.round_apply_smem_max_l() != SMEM_MAX_L:
+            raise RuntimeError("round_apply: the kernel's shared-memory cap "
+                               "differs from SMEM_MAX_L")
         _lib = lib
     return _lib
+
+
+def ctas_per_sm(L: int) -> int:
+    """Resident CTAs per SM of the kernel for rows of L bytes (the CUDA
+    occupancy calculator, on the current card)."""
+    n = _load().round_apply_ctas_per_sm(L)
+    if n < 0:
+        raise RuntimeError(
+            f"round_apply: occupancy query failed (cuda error {-n})")
+    return n
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself if its data starts on a 16-byte boundary (the kernels'
+    16-byte loads need it), else an aligned copy."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check(keys, params, lit, data):
@@ -98,9 +127,13 @@ def round_apply(keys, params, lit, data):
     if data.device.type != "cuda":
         raise RuntimeError(f"round_apply: unsupported device {data.device}")
     B, L = data.shape
+    if L % 16:
+        raise ValueError("round_apply: the kernel takes rows whose width is a "
+                         f"multiple of 16, got {L}")
     out = torch.empty_like(data)
     if B == 0:
         return out
+    data = aligned(data)
     lib = _load()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream

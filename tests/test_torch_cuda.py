@@ -1,6 +1,8 @@
 """erlamsa_tpu_torch on the card: the CUDA kernels (round apply, case
 rounds, random mask) against their plain PyTorch versions, and the GPU
-main path against the CPU one in each stream.
+main path against the CPU one in each stream. The round and case kernels
+are held at L = 256, 8192 and 65536 (their shared-memory path) and at
+L = 1,000,000 (their device-memory path).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither jax nor the JAX package, so on a machine with a card and
@@ -53,10 +55,10 @@ def _programs(rng, B, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [256, 8192, 65536])
+@pytest.mark.parametrize("L", [256, 8192, 65536, 1000000])
 def test_kernel_equals_plain(cuda_device, L):
     rng = np.random.default_rng(L)
-    B = 256
+    B = 256 if ra.path(L) == "shared" else 8
     args = [
         torch.from_numpy(rng.integers(0, 2**32, (B, 2), dtype=np.int64)),
         torch.from_numpy(_programs(rng, B, L)),
@@ -74,7 +76,8 @@ def test_kernel_equals_plain(cuda_device, L):
 
 def _case_operands(rng, B, L, dev):
     """Rows of text lines, length-prefixed blobs and binary, a quarter
-    filled to the row end; random keys, scores and rounds."""
+    filled to the row end; random keys and scores; every round count
+    0-16 when B >= 17."""
     data = np.zeros((B, L), np.uint8)
     n = np.empty(B, np.int32)
     for b in range(B):
@@ -82,24 +85,24 @@ def _case_operands(rng, B, L, dev):
         if b % 3 == 0:
             row = (b"line %d value=-%d\n" % (b, rng.integers(1 << 30))) * L
         elif b % 3 == 1:
-            row = b"HD" + max(ln - 4, 0).to_bytes(2, "big") + bytes(
+            row = b"HD" + min(max(ln - 4, 0), 0xFFFF).to_bytes(2, "big") + bytes(
                 rng.integers(33, 127, L, dtype=np.uint8))
         else:
             row = bytes(rng.integers(0, 256, L, dtype=np.uint8))
         data[b, :ln] = np.frombuffer(row[:ln], np.uint8)
         n[b] = ln
-    rounds = rng.integers(0, 17, B).astype(np.int32)
-    rounds[: B // 2] = 16
+    rounds = rng.permutation(np.arange(B) % 17).astype(np.int32)
     host = (rng.integers(0, 2**32, (B, 2), dtype=np.int64), data, n,
             rng.integers(2, 11, (B, cr.M)).astype(np.int32), rounds)
     return [torch.from_numpy(x).to(dev) for x in host]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [256, 8192])
+@pytest.mark.parametrize("L", [256, 8192, 65536, 1000000])
 def test_case_rounds_kernel_equals_plain(cuda_device, L):
     rng = np.random.default_rng(L + 1)
-    keys, data, n, scores, rounds = _case_operands(rng, 128, L, cuda_device)
+    B = {256: 128, 8192: 128, 65536: 34}.get(L, 17)
+    keys, data, n, scores, rounds = _case_operands(rng, B, L, cuda_device)
     pris = [torch.tensor(DEFAULT_DEVICE_PRI, dtype=torch.int32)]
     if L == 256:
         pris += [torch.eye(cr.M, dtype=torch.int32)[m] for m in range(cr.M)]
