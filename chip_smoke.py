@@ -8,8 +8,11 @@ Phases, each fatal on failure:
              the checkout's sources, one nvcc each, all at once; print
              ptxas's registers, spills and shared memory per kernel and
              the CTAs per SM at the main path's row width; count the
-             integer instructions of one threefry word in the SASS of a
-             probe kernel (for the kernels' operation bounds);
+             instructions of one threefry word in the SASS of a probe
+             kernel built from the mask kernel's threefry code, by pipe
+             (integer ALU, FMA pipe, all issued), for the operation
+             bounds, and time the probe on the card: it must not run
+             faster than that bound allows;
   2. kernel  hold each kernel against its plain PyTorch version on the
              card, byte for byte (tolerance 0: every function is integer):
              the round kernel over every kind and the edge programs, the
@@ -20,7 +23,10 @@ Phases, each fatal on failure:
              shared-memory path) and 1,000,000 (their device-memory path);
              the case kernel also with one priority at 3e8 (L = 256 and
              8192), where score x priority wraps in int32 as in the
-             reference;
+             reference; the mask kernel also on edge rows (span ends that
+             wrap in int32, inactive rows, empty spans, prob 0, 1, 100 and
+             101, every op), on rows starting one byte past a 16-byte
+             boundary, and at L = 17 and 4099;
   3. main    the batch fuzzer's device path (services/batchrunner.fuzz_cases,
              the device side of ``python -m erlamsa_tpu_torch``) at full
              width, once per stream: ERLAMSA_PALLAS=2 (the case kernel),
@@ -59,9 +65,10 @@ checkout of the repository, it exits non-zero and prints no result.
             torch.profiler (CPU and CUDA): the ten largest device ops,
             the device's idle share, the case kernel's share of the case.
 --compare   each DIR holds another checkout of the repository (for
-            example the parent commit, from git archive): build its round
-            and case kernels and time them against this checkout's in
-            turns (theirs, ours, ours, theirs) on the main path's inputs;
+            example the parent commit, from git archive): build its three
+            kernels, check their bytes equal these, and time them against
+            this checkout's in turns (theirs, ours, ours, theirs) on the
+            inputs they are timed on here, each beside its bound;
             with --profile, trace a level-2 case with the first DIR's case
             kernel too; then time the default (composite) stream's device
             path of DIR and of this checkout, in the same turns.
@@ -80,35 +87,60 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# H100 SXM 32-bit integer issue rate: 132 SMs x 64 results per clock per
-# SM (integer add, bitwise and shift at compute capability 9.0, CUDA C++
-# Programming Guide's arithmetic throughput table) x 1.98 GHz boost clock
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer-pipe opcodes counted per threefry word; IMADs, which nvcc issues
-# to the FMA pipe alongside them, are printed but not counted
+SMS, CLOCK_HZ = 132, 1.98e9  # H100 SXM: SMs, boost clock
+# lane-instructions per clock per SM (CUDA C++ Programming Guide's
+# arithmetic throughput table, compute capability 9.0): the integer ALU
+# (3-input add, bitwise, shift, compare) 64, the FMA pipe's integer
+# multiply-add (IMAD, which nvcc also emits for adds and moves) 64, and the
+# issue of any instruction, one warp per clock on each of the 4
+# sub-partitions, 128
+ALU_RATE, FMA_RATE, ISSUE_RATE = 64, 64, 128
+# opcodes that issue to the integer ALU alone. VIADD (sm_90's add with an
+# immediate) is left out: its pipe is not documented, and the probe below,
+# whose words carry VIADDs, runs faster than counting it as ALU would
+# allow; it counts among all instructions
 INT_PIPE = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA",
-            "PRMT", "SEL", "ISETP", "IMNMX", "IABS", "VIADD"}
+            "PRMT", "SEL", "ISETP", "IMNMX", "IABS"}
+# the threefry word the mask kernel draws (erl::Threefry::word, high
+# counter word 0) under a key held in registers, N words a loop step; the
+# round and case kernels compute the same words through erl::threefry_word
 THREEFRY_PROBE = r"""
+#include <cuda_runtime.h>
 #include "threefry.cuh"
 template <int N>
-__device__ void words(uint32_t k0, uint32_t k1, uint32_t* out) {
-  uint32_t i = blockIdx.x * blockDim.x + threadIdx.x, acc = 0;
+__device__ void words(uint32_t k0, uint32_t k1, uint32_t* out, int steps) {
+  const erl::Threefry tf(k0, k1);
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) acc ^= erl::threefry_word(k0, k1, i * N + j);
+    for (int j = 0; j < N; ++j) acc ^= tf.word(0u, (i * steps + t) * N + j);
+  }
   out[i] = acc;
 }
-extern "C" __global__ void words4(uint32_t k0, uint32_t k1, uint32_t* o) {
-  words<4>(k0, k1, o);
+extern "C" __global__ void words4(uint32_t k0, uint32_t k1, uint32_t* o,
+                                  int steps) {
+  words<4>(k0, k1, o, steps);
 }
-extern "C" __global__ void words8(uint32_t k0, uint32_t k1, uint32_t* o) {
-  words<8>(k0, k1, o);
+extern "C" __global__ void words8(uint32_t k0, uint32_t k1, uint32_t* o,
+                                  int steps) {
+  words<8>(k0, k1, o, steps);
+}
+extern "C" int words8_launch(int blocks, int threads, void* out, int steps,
+                             void* stream) {
+  words8<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      0x2Au, 0x1234567u, (uint32_t*)out, steps);
+  return (int)cudaGetLastError();
 }
 """
+PROBE_CTAS_PER_SM, PROBE_THREADS, PROBE_STEPS = 16, 256, 64
 BATCH = 4096  # seeds, one capacity class (BASELINE.json configs[2])
 CASES = 4
 CHECK_ROWS = 64  # rows held against the CPU plain path
 # (L, B): the kernels' shared-memory path up to 65536, device memory above
 KERNEL_SIZES = ((256, 256), (8192, 256), (65536, 32), (1000000, 4))
+MASK_EDGE_SIZES = ((17, 64), (4099, 32))  # (L, B), the mask kernel alone
 GRAPH_LAUNCHES = 20  # launches per CUDA graph when timing a kernel
 M = 31  # device mutators
 BIG_PRI = 300_000_000  # x a score of 8-10 passes 2^31: the int32 bound wraps
@@ -249,22 +281,22 @@ def max_err(got, want) -> int:
 
 
 def threefry_ops(build_dir, csrc):
-    """Integer-pipe instructions per threefry word in the SASS nvcc emits
-    for sm_90a (csrc/threefry.cuh): the opcode counts of an 8-word probe
-    kernel less those of a 4-word one, over 4, so that set-up, the key
-    schedule and the store cancel. Returns (ops per word, {opcode: per
-    word})."""
+    """Instructions per threefry word in the SASS nvcc emits for sm_90a
+    (csrc/threefry.cuh), by pipe: the opcode counts of the probe's 8-word
+    loop less those of its 4-word one, over 4, so that set-up, the key
+    schedule, the loop and the store cancel. Returns ({"alu", "fma",
+    "all"}: per word, {opcode: per word}, the probe's library)."""
     from erlamsa_tpu_torch.ops import cuda_build
 
     src = os.path.join(build_dir, "threefry_probe.cu")
-    cubin = os.path.join(build_dir, "threefry_probe.cubin")
+    lib = os.path.join(build_dir, "threefry_probe.so")
     with open(src, "w") as f:
         f.write(THREEFRY_PROBE)
-    subprocess.run([cuda_build.toolkit(), "-cubin", "-gencode",
+    subprocess.run([cuda_build.toolkit(), "-gencode",
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-I", csrc, "-o", cubin, src],
-                   check=True, capture_output=True, timeout=300)
-    sass = subprocess.run([cuda_build.toolkit("cuobjdump"), "-sass", cubin],
+                    "-shared", "-Xcompiler", "-fPIC", "-I", csrc, "-o", lib,
+                    src], check=True, capture_output=True, timeout=300)
+    sass = subprocess.run([cuda_build.toolkit("cuobjdump"), "-sass", lib],
                           check=True, capture_output=True, text=True,
                           timeout=120).stdout
     hist, fn = {}, None
@@ -281,14 +313,48 @@ def threefry_ops(build_dir, csrc):
     per = {op: (hist["words8"].get(op, 0) - hist["words4"].get(op, 0)) / 4
            for op in set(hist["words8"]) | set(hist["words4"])}
     per = {op: v for op, v in sorted(per.items()) if v}
-    return sum(v for op, v in per.items() if op in INT_PIPE), per
+    pipes = {"alu": sum(v for op, v in per.items() if op in INT_PIPE),
+             "fma": sum(v for op, v in per.items() if op.startswith("IMAD")),
+             "all": sum(per.values())}
+    return pipes, per, lib
 
 
-def bound(moved_bytes, words, ops_per_word):
+def probe_clocks(lib) -> float:
+    """SM clocks per threefry word that the probe takes on the card, every
+    SM full (CUDA events around 20 launches of its 8-word loop)."""
+    import ctypes
+
+    import torch
+
+    fn = ctypes.CDLL(lib).words8_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = SMS * PROBE_CTAS_PER_SM
+    out = torch.empty(blocks * PROBE_THREADS, dtype=torch.int32,
+                      device="cuda")
+
+    def launch():
+        rc = fn(blocks, PROBE_THREADS, out.data_ptr(), PROBE_STEPS,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"threefry probe launch failed (cuda error {rc})")
+
+    ms = cuda_ms(launch, 20)
+    return ms * 1e-3 * SMS * CLOCK_HZ / (out.numel() * PROBE_STEPS * 8)
+
+
+def word_clocks(pipes):
+    """SM clocks per threefry word per lane: the busiest of the integer
+    ALU, the FMA pipe and the issue slots."""
+    return max(pipes["alu"] / ALU_RATE, pipes["fma"] / FMA_RATE,
+               pipes["all"] / ISSUE_RATE)
+
+
+def bound(moved_bytes, words, pipes):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth
-    and the threefry words' integer operations over the integer rate."""
+    and the threefry words' instructions over the busiest pipe's rate."""
     t_bytes = moved_bytes / HBM_BYTES_PER_S
-    t_ops = words * ops_per_word / INT32_OPS_PER_S
+    t_ops = words * word_clocks(pipes) / (SMS * CLOCK_HZ)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -349,28 +415,69 @@ def kernels_vs_plain(rng, dev):
               f"priority vectors={len(pris)} mutators applied="
               f"{len(applied - {-1})} max_abs_err={errs['case_rounds']}")
 
-        seeds = torch.from_numpy(rng.integers(-2**31, 2**31, B)
-                                 .astype(np.int32)).to(dev)
-        params = torch.from_numpy(np.stack([
-            rng.integers(-8, L, B), rng.integers(0, L + 8, B),
-            rng.integers(0, 5, B), rng.integers(0, 102, B),
-            rng.integers(0, 4, B) > 0], 1).astype(np.int32)).to(dev)
-        mdata = torch.from_numpy(rng.integers(0, 256, (B, L),
-                                              dtype=np.uint8)).to(dev)
-        got = rm.randmask(seeds, params, mdata)
-        torch.cuda.synchronize()
-        err = max_err(got, rm.randmask_plain(rm.seed_keys(seeds), params,
-                                             mdata))
-        key = torch.from_numpy(rng.integers(0, 2**32, 2,
-                                            dtype=np.int64)).to(dev)
-        one = rm.randmask_single(key, params[0], mdata[0])
-        torch.cuda.synchronize()
-        err = max(err, max_err(one, rm.randmask_plain(
-            key[None], params[:1], mdata[:1])[0]))
+        err = mask_vs_plain(rng, B, L, dev)
         errs["randmask"] = max(errs["randmask"], err)
-        print(f"kernel-vs-plain randmask: L={L} B={B} max_abs_err={err}")
+        check(err == 0, f"mask kernel != plain at L={L}")
+    for L, B in MASK_EDGE_SIZES:  # widths that are not a multiple of 16
+        err = mask_vs_plain(np.random.default_rng(L), B, L, dev)
+        errs["randmask"] = max(errs["randmask"], err)
         check(err == 0, f"mask kernel != plain at L={L}")
     return errs
+
+
+def mask_edges(L):
+    """(s, l, op, prob, active) rows at the mask kernel's edges: span ends
+    that wrap in int32 (negative, to a large positive) or sit at 2^31 - 1,
+    an inactive row, empty spans (l = 0, l < 0), prob 0, 1, 100 and 101,
+    ops 3, 4 and -1 (replace)."""
+    return [(5, 2**31 - 2, 2, 100, 1), (-2**31 + 5, -10, 2, 100, 1),
+            (3, 2**31 - 4, 3, 100, 1), (4, 2**31 - 4, 3, 100, 1),
+            (0, L, 2, 100, 0), (L // 3, 0, 2, 100, 1), (L // 2, -5, 4, 100, 1),
+            (0, L, 0, 0, 1), (0, L, 1, 1, 1), (0, L, 2, 100, 1),
+            (0, L, 3, 101, 1), (1, L, 4, 50, 1), (1, L - 2, -1, 50, 1)]
+
+
+def mask_vs_plain(rng, B, L, dev) -> int:
+    """The mask kernel against its plain version on B seeded rows and the
+    edge rows, with the rows 16-byte aligned and starting one byte past a
+    boundary, and randmask_single on one row. The edge rows draw from a
+    generator of their own, so that ``rng`` (and the corpus drawn from it
+    later) runs as before they were added. Returns the largest error."""
+    import torch
+
+    from erlamsa_tpu_torch.ops import randmask as rm
+
+    seeds = rng.integers(-2**31, 2**31, B)
+    params = np.stack([rng.integers(-8, L, B), rng.integers(0, L + 8, B),
+                       rng.integers(0, 5, B), rng.integers(0, 102, B),
+                       rng.integers(0, 4, B) > 0], 1)
+    data = rng.integers(0, 256, (B, L), dtype=np.uint8)
+    key = torch.from_numpy(rng.integers(0, 2**32, 2, dtype=np.int64)).to(dev)
+    erng = np.random.default_rng(L)
+    edges = np.asarray(mask_edges(L))
+    R = B + len(edges)
+    seeds = torch.from_numpy(np.concatenate([
+        seeds, erng.integers(-2**31, 2**31, len(edges))])
+        .astype(np.int32)).to(dev)
+    params = torch.from_numpy(np.concatenate([params, edges])
+                              .astype(np.int32)).to(dev)
+    buf = np.empty(R * L + 1, np.uint8)
+    buf[:B * L] = data.reshape(-1)
+    buf[B * L:] = erng.integers(0, 256, len(edges) * L + 1, dtype=np.uint8)
+    buf = torch.from_numpy(buf).to(dev)
+    data, unaligned = buf[:-1].view(R, L), buf[1:].view(R, L)
+    keys = rm.seed_keys(seeds)
+    got = rm.randmask(seeds, params, data)
+    got_u = rm.randmask_keys(keys, params, unaligned)
+    one = rm.randmask_single(key, params[0], data[0])
+    torch.cuda.synchronize()
+    err = max(max_err(got, rm.randmask_plain(keys, params, data)),
+              max_err(got_u, rm.randmask_plain(keys, params, unaligned)),
+              max_err(one, rm.randmask_plain(key[None], params[:1],
+                                             data[:1])[0]))
+    print(f"kernel-vs-plain randmask: L={L} B={B} + {len(edges)} edge rows, "
+          f"aligned and at a 1-byte offset, max_abs_err={err}")
+    return err
 
 
 def counts():
@@ -579,42 +686,46 @@ def load_port(root):
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
         for sub in ("ops", "ops.cuda_build", "ops.round_apply",
-                    "ops.case_rounds"):
+                    "ops.case_rounds", "ops.randmask"):
             importlib.import_module(f"{name}.{sub}")
     return sys.modules[name]
 
 
-def compare(root, captured, c_args, card, corpus, seed3, dev):
-    """Time the round and case kernels of the checkout at ``root`` against
-    this checkout's, in turns (theirs, ours, ours, theirs), on the main
-    path's captured inputs: device time (CUDA graph) and wrapper time;
-    then the default stream's device path (fuzz_cases, composite) over
-    the main path's corpus, in turns, in samples/s."""
+def compare(root, timed, bounds, card, corpus, seed3, dev):
+    """Time the three kernels of the checkout at ``root`` against this
+    checkout's, in turns (theirs, ours, ours, theirs), on the inputs they
+    are timed on here (``timed``: name -> args): device time (CUDA graph)
+    and wrapper time, beside this run's bound; then the default stream's
+    device path (fuzz_cases, composite) over the main path's corpus, in
+    turns, in samples/s."""
     import importlib
 
     import torch
 
     from erlamsa_tpu_torch.ops import case_rounds as cr
+    from erlamsa_tpu_torch.ops import randmask as rm
     from erlamsa_tpu_torch.ops import round_apply as ra
     from erlamsa_tpu_torch.services import batchrunner as br
 
+    names = ("round_apply", "case_rounds", "randmask")
     other = load_port(root)
     t = time.perf_counter()
-    other.ops.cuda_build.build_all(["round_apply", "case_rounds"])
+    other.ops.cuda_build.build_all(list(names))
     print(f"compare: built {root}'s kernels in {time.perf_counter() - t:.1f}s")
     if hasattr(other.ops.cuda_build, "ptxas_report"):
-        for name in ("round_apply", "case_rounds"):
+        for name in names:
             for entry, info in other.ops.cuda_build.ptxas_report(name):
                 print(f"compare: ptxas {name} {entry}: {info}")
+        for name in ("round_apply", "case_rounds"):
             mod = getattr(other.ops, name)
             print(f"compare: {name} CTAs per SM at L=8192 / 1000000: "
                   f"{mod.ctas_per_sm(8192)} / {mod.ctas_per_sm(1000000)}")
-    ra_args = captured["round_apply"]
-    for name, ours, theirs, args in (
-            ("round_apply", ra.round_apply, other.ops.round_apply.round_apply,
-             ra_args),
-            ("case_rounds", cr.case_rounds, other.ops.case_rounds.case_rounds,
-             c_args)):
+    for name, ours, theirs in (
+            ("round_apply", ra.round_apply, other.ops.round_apply.round_apply),
+            ("case_rounds", cr.case_rounds, other.ops.case_rounds.case_rounds),
+            ("randmask", rm.randmask_keys,
+             other.ops.randmask.randmask_keys)):
+        args = timed[name]
         check(max_err(ours(*args), theirs(*args)) == 0,
               f"{name}: {root}'s kernel and this one differ")
         dev_ms, wrap_ms = [], []
@@ -622,11 +733,12 @@ def compare(root, captured, c_args, card, corpus, seed3, dev):
             dev_ms.append(graph_ms(lambda fn=fn: fn(*args)))
             wrap_ms.append(cuda_ms(lambda fn=fn: fn(*args), 20))
         fmt = lambda v: " / ".join(f"{x:.4f}" for x in v)  # noqa: E731
-        shape = list(args[1 if name == "case_rounds" else 3].shape)
+        share = " / ".join(f"{bounds[name] / x * 100:.1f}%" for x in dev_ms)
+        shape = list(args[1 if name == "case_rounds" else -1].shape)
         print(f"compare {name} at {shape} (theirs, ours, ours, theirs): "
-              f"device ms {fmt(dev_ms)}; "
-              f"wrapper ms {fmt(wrap_ms)}; outputs equal; theirs = {root}; "
-              f"card {card}")
+              f"device ms {fmt(dev_ms)}; wrapper ms {fmt(wrap_ms)}; bound "
+              f"{bounds[name]:.4f} ms, device share of bound {share}; "
+              f"outputs equal; theirs = {root}; card {card}")
     other_br = importlib.import_module(f"{other.__name__}.services.batchrunner")
     rates, last = [], []
     for mod in (other_br, br, br, other_br):
@@ -744,18 +856,25 @@ def main() -> int:
     built = cuda_build.build_all(["round_apply", "case_rounds", "randmask"])
     print(f"build: {', '.join(os.path.relpath(p, here) for p in built.values())}"
           f" in {time.perf_counter() - t:.1f}s")
-    ops_per_word, per_op = threefry_ops(cuda_build.BUILD_DIR,
+    pipes, per_op, probe = threefry_ops(cuda_build.BUILD_DIR,
                                         cuda_build.CSRC)
     ops = ", ".join(f"{op} {v:g}" for op, v in per_op.items())
-    print(f"threefry word in sm_90a SASS: {ops_per_word:g} integer-pipe "
-          f"instructions ({ops}); bound rate {INT32_OPS_PER_S:.4g} int32 "
-          f"ops/s")
+    floor, ran = word_clocks(pipes), probe_clocks(probe)
+    print(f"threefry word in sm_90a SASS: integer ALU {pipes['alu']:g}, "
+          f"FMA pipe (IMAD) {pipes['fma']:g}, all {pipes['all']:g} "
+          f"instructions ({ops}); bound {floor:.4f} SM clocks per word = "
+          f"max(ALU / {ALU_RATE}, FMA / {FMA_RATE}, all / {ISSUE_RATE}) at "
+          f"{SMS} SMs x {CLOCK_HZ:.4g} Hz; the probe ran {ran:.4f} clocks "
+          f"per word on the card ({floor / ran * 100:.1f}% of the bound)")
+    check(ran >= floor, "the threefry probe ran faster than its operation "
+          "bound allows: an opcode is counted on the wrong pipe")
     for name in ("round_apply", "case_rounds", "randmask"):
         for entry, info in cuda_build.ptxas_report(name):
             print(f"ptxas {name} {entry}: {info}")
     print("CTAs per SM at L=8192 / 1000000: " + "; ".join(
         f"{mod.__name__.rsplit('.', 1)[1]} {mod.ctas_per_sm(8192)} / "
-        f"{mod.ctas_per_sm(1000000)}" for mod in (ra, cr)))
+        f"{mod.ctas_per_sm(1000000)}" for mod in (ra, cr))
+        + f"; randmask {rm.ctas_per_sm()} at any L")
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
@@ -842,7 +961,7 @@ def main() -> int:
     fy = int(torch.where(kind == ra.K_PERM_BYTES,
                          pl.clamp(0, min(256, L)), 0).sum())
     words = int(span.sum()) + int(occurs.sum()) + fy
-    bound_ms, bound_by = bound(moved, words, ops_per_word)
+    bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("round_apply", "erlamsa_tpu/ops/pallas_kernels.py:319",
                  launches[1]["round_apply"], max(errs["round_apply"], err),
                  ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
@@ -864,7 +983,7 @@ def main() -> int:
     # row in and out once, plus keys, n, scores in and out, rounds, log,
     # priorities
     moved = 2 * B * L + B * (16 + 4 + 4 + 2 * M * 4 + 4 + 16 * 4) + M * 8
-    bound_ms, bound_by = bound(moved, words, ops_per_word)
+    bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("case_rounds", "erlamsa_tpu/ops/pallas_rounds.py:1180",
                  launches[2]["case_rounds"], max(errs["case_rounds"], err),
                  ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
@@ -892,10 +1011,12 @@ def main() -> int:
     occ_n = torch.remainder(prng.bits(mkeys, (L,)), 100)
     words = int(inspan.sum()) + int((inspan & (occ_n < 50)).sum())
     moved = 2 * B * L + B * (4 + 5 * 4)
-    bound_ms, bound_by = bound(moved, words, ops_per_word)
+    bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("randmask", "erlamsa_tpu/ops/pallas_kernels.py:97",
                  mask_launches, max(errs["randmask"], err), ms, plain_ms,
                  bound_ms, bound_by, B, L, moved, words, wrap_ms))
+    timed = {"round_apply": captured["round_apply"], "case_rounds": c_args,
+             "randmask": (mkeys, params, mdata)}
 
     for (name, _rep, n_launch, e, ms, plain_ms, bound_ms, bound_by, B, L,
          moved, words, wrap_ms) in rows:
@@ -905,7 +1026,8 @@ def main() -> int:
               f"threefry words), {bound_ms / ms * 100:.1f}% of bound, "
               f"{n_launch} launches on its main path; card {card}")
     for root in args.compare:
-        compare(root, captured, c_args, card, corpus, seed3, dev)
+        compare(root, timed, {r[0]: r[6] for r in rows}, card, corpus,
+                seed3, dev)
     if args.profile:
         profile_case(corpus, seed3, dev, card, "this checkout")
         if args.compare:

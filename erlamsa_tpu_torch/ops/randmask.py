@@ -14,8 +14,10 @@ Two versions compute the same function: the CUDA kernel
 (csrc/randmask.cu) for tensors on a GPU, and ``randmask_plain``, plain
 PyTorch, for tensors on the CPU (and as the kernel's yardstick). The
 wrappers take the plain version only because their tensors lie on the
-CPU; on a CUDA tensor they launch the kernel or raise. No engine path
-calls them, as in the JAX package.
+CPU; on a CUDA tensor they launch the kernel or raise. The kernel takes
+any L and any alignment of the rows. The span end ``s + l`` wraps in
+int32 in both, as in the reference. No engine path calls them, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -107,6 +109,16 @@ def _load():
     return _lib
 
 
+def ctas_per_sm() -> int:
+    """Resident CTAs per SM of the kernel (the CUDA occupancy calculator,
+    on the current card); it takes no dynamic shared memory, so any L."""
+    n = _load().randmask_ctas_per_sm()
+    if n < 0:
+        raise RuntimeError(
+            f"randmask: occupancy query failed (cuda error {-n})")
+    return n
+
+
 def randmask_plain(keys, params, data):
     """The same function in plain PyTorch, on any device."""
     B, L = data.shape
@@ -120,5 +132,6 @@ def randmask_plain(keys, params, data):
     rnd = (bits[:, 2] & 0xFF).to(torch.uint8)
     masked = select([op == 0, op == 1, op == 2],
                     [data & ~one, data | one, data ^ one], rnd)
-    hit = (i >= s) & (i < s + l) & occurs & (active != 0)
+    # the span end wraps in int32 as the reference's `s + l` does
+    hit = (i >= s) & (i < prng.wrap32(s + l)) & occurs & (active != 0)
     return torch.where(hit, masked, data)

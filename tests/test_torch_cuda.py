@@ -120,26 +120,49 @@ def test_case_rounds_kernel_equals_plain(cuda_device, L):
             assert torch.equal(a, b)
 
 
+def _mask_edges(L):
+    """(s, l, op, prob, active) rows at the mask's edges: span ends that
+    wrap in int32 (negative, to a large positive) or sit at 2^31 - 1, an
+    inactive row, empty spans (l = 0, l < 0), prob 0, 1, 100 and 101, ops
+    3, 4 and -1 (replace)."""
+    return [(5, 2**31 - 2, 2, 100, 1), (-2**31 + 5, -10, 2, 100, 1),
+            (3, 2**31 - 4, 3, 100, 1), (4, 2**31 - 4, 3, 100, 1),
+            (0, L, 2, 100, 0), (L // 3, 0, 2, 100, 1), (L // 2, -5, 4, 100, 1),
+            (0, L, 0, 0, 1), (0, L, 1, 1, 1), (0, L, 2, 100, 1),
+            (0, L, 3, 101, 1), (1, L, 4, 50, 1), (1, L - 2, -1, 50, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [256, 8192])
+@pytest.mark.parametrize("L", [17, 256, 4099, 8192])
 def test_randmask_kernel_equals_plain(cuda_device, L):
+    """Random rows and the edge rows, at widths that are and are not a
+    multiple of 16, with the rows aligned and starting one byte past a
+    16-byte boundary."""
     rng = np.random.default_rng(L + 2)
     B = 64
     seeds = torch.from_numpy(rng.integers(-2**31, 2**31, B).astype(np.int32))
-    params = torch.from_numpy(np.stack([
+    params = np.stack([
         rng.integers(-8, L, B), rng.integers(0, L + 8, B),
         rng.integers(0, 5, B), rng.integers(0, 102, B),
-        rng.integers(0, 3, B)], 1).astype(np.int32))
-    data = torch.from_numpy(rng.integers(0, 256, (B, L), dtype=np.uint8))
-    seeds, params, data = (x.to(cuda_device) for x in (seeds, params, data))
+        rng.integers(0, 3, B)], 1)
+    edges = _mask_edges(L)
+    params[:len(edges)] = edges
+    params = torch.from_numpy(params.astype(np.int32))
+    buf = torch.from_numpy(rng.integers(0, 256, B * L + 1, dtype=np.uint8))
+    seeds, params, buf = (x.to(cuda_device) for x in (seeds, params, buf))
+    data, unaligned = buf[:-1].view(B, L), buf[1:].view(B, L)
+    assert unaligned.data_ptr() % 16 != 0
+    keys = rm.seed_keys(seeds)
     before = rm.launches
     got = rm.randmask(seeds, params, data)
-    one = rm.randmask_single(rm.seed_keys(seeds)[3], params[3], data[3])
+    got_u = rm.randmask_keys(keys, params, unaligned)
+    one = rm.randmask_single(keys[2], params[2], data[2])
     torch.cuda.synchronize()
-    assert rm.launches == before + 2
-    want = rm.randmask_plain(rm.seed_keys(seeds), params, data)
+    assert rm.launches == before + 3
+    want = rm.randmask_plain(keys, params, data)
     assert torch.equal(got, want)
-    assert torch.equal(one, want[3])
+    assert torch.equal(got_u, rm.randmask_plain(keys, params, unaligned))
+    assert torch.equal(one, want[2])
 
 
 @pytest.mark.cuda

@@ -59,6 +59,43 @@ def test_randmask_single_equals_pallas_kernel():
         np.testing.assert_array_equal(got.numpy(), ref[b])
 
 
+# (s, l) whose int32 span end s + l wraps, or sits at its edges: the end
+# wraps negative (nothing masked), wraps to a large positive (everything
+# from 0), l = 0, l < 0, s + l exactly 2^31 - 1 (no wrap) and one past it
+_WRAP_SPANS = ((5, 2**31 - 2), (-2**31 + 5, -10), (7, 0), (40, -3),
+               (3, 2**31 - 4), (4, 2**31 - 4))
+
+
+@pytest.mark.parametrize("entry", ["randmask", "randmask_single"])
+def test_span_end_wraps_like_int32(entry):
+    L = 64
+    rng = np.random.default_rng(5)
+    params = np.asarray([[s, l, op, 100, 1] for s, l in _WRAP_SPANS
+                         for op in (2, 3)], np.int32)
+    B = len(params)
+    data = rng.integers(0, 256, (B, L), dtype=np.uint8)
+    seeds = np.arange(1, B + 1, dtype=np.int32)
+    if entry == "randmask":
+        ref = np.asarray(pallas_randmask(jnp.asarray(seeds),
+                                         jnp.asarray(params),
+                                         jnp.asarray(data)))
+        got = rm.randmask(torch.from_numpy(seeds), torch.from_numpy(params),
+                          torch.from_numpy(data)).numpy()
+    else:
+        keys = jax.vmap(jax.random.key)(jnp.asarray(seeds))
+        ref = np.asarray(_single(keys, jnp.asarray(params),
+                                 jnp.asarray(data)))
+        kt = rm.seed_keys(torch.from_numpy(seeds))
+        got = np.stack([rm.randmask_single(kt[b], torch.from_numpy(params[b]),
+                                           torch.from_numpy(data[b])).numpy()
+                        for b in range(B)])
+    np.testing.assert_array_equal(got, ref)
+    changed = (ref != data).sum(1)
+    # the first span's end wraps negative, the second's to a large positive
+    assert changed[0] == 0 and changed[2] > L // 2
+    assert changed[8] > 0 and changed[10] == 0
+
+
 def test_seed_keys_are_jax_keys():
     seeds = np.asarray([0, 1, 7, -1, 2**31 - 1, -(2**31)], np.int32)
     ref = np.asarray(jax.vmap(lambda s: jax.random.key_data(
