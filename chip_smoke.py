@@ -63,7 +63,8 @@ Phases, each fatal on failure:
              before phase 9): every file equal, the case kernel launched
              twice in each, save_state's seconds per case; (b) phase 5's
              128-row corpus, the full set,
-             levels 2 and 0, interrupted after case 1 and resumed on the
+             level 2 (2 and 0 before phase 10 came), interrupted after
+             case 1 and resumed on the
              card: the files equal phase 5's CPU run, rows host-routed in
              the resumed part; (c) the card's checkpoint after case 1
              resumed on the CPU: the same files; (d) one case of (a)'s
@@ -135,6 +136,31 @@ Phases, each fatal on failure:
              0..2047; (d) ``python -m erlamsa_tpu_torch -H``
              in a process of its own answers request id 0 with (a)'s
              bytes.
+ 10. proxy   the fuzzing proxy (``-i``, services/proxy.py) and the ``-m
+             xla`` bridge server (services/xla_bridge.py), level 2, the
+             flush batcher at the CLI's defaults (256 rows x 16384 B, 20
+             ms): (a) tcp:// at -P 1.0,1.0 to an echo upstream, 32 strict
+             request/response exchanges of 64-1460 B packets in phase 3's
+             shapes, and 16 each through http:// (Content-Length fixed
+             up), http2:// (only DATA changed, frame lengths right),
+             udp:// and one connect:// tunnel: every request the batcher
+             admitted == the single-shot request step at its (seed, rid),
+             16 tcp answers == the CPU plain path, the case kernel once
+             per flush; (b) the BASELINE.json configs[4] load: 256
+             keep-alive connections from a load process of its own (it
+             also runs the echo upstream), 16 packets of 64-1460 B each:
+             exchanges/s, fuzzed packets/s, p50/p99 round trip, flushes,
+             fill, launches, escapes, drops (a packet fuzzed to nothing
+             gets no echo: a drop after 5 s), peak device memory; no
+             give-up or restart, the case kernel once per flush; (c)
+             ``python -m erlamsa_tpu_torch.services.xla_bridge`` over
+             stdio: HELLO, FUZZ_BATCH tpu of phase 3's corpus x 4 cases
+             == the in-process make_fuzzer step (one case-kernel launch a
+             call), 16 FUZZ_CASE and MUX_EVENT frames == the CPU
+             handlers, an unknown mutation name answers 0xFF and the next
+             frame is served, nothing on stdout but frames; (d) ``python
+             -m erlamsa_tpu_torch -i tcp://...`` in a process of its own
+             forwards (a)'s first answer.
 
 After each of phases 4 to 7, host-pool workers still running rows
 abandoned past -T are stopped, so they take no cores from a later phase.
@@ -151,6 +177,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py [--seed N] [--profile] [--compare DIR ...]
     python3 chip_smoke.py --feedback-only
     python3 chip_smoke.py --serving-only
+    python3 chip_smoke.py --proxy-only
 
 --profile   trace one level-2 case at the main path's shape under
             torch.profiler (CPU and CUDA): the ten largest device ops,
@@ -169,6 +196,7 @@ checkout of the repository, it exits non-zero and prints no result.
 --feedback-only  build the kernels and run phase 8 alone; it prints no
             result lines.
 --serving-only  build the kernels and run phase 9 alone; no result lines.
+--proxy-only  build the kernels and run phase 10 alone; no result lines.
 --full-set-only  build the kernels and run phase 4's level-2 run alone,
             at 2 and at 4 cases, with no store build beside it: a run's
             fixed seconds and its seconds a case; no result lines.
@@ -247,6 +275,10 @@ ROUND_EDGE_WIDTHS = (240,)  # the round kernel's wrap rows alone
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 IO_CASES, IO_SPLIT = 2, 1  # phase 6 (a): cases, and where the run stops
 MIXED_SPLIT = 1  # phase 6 (b): the case after which the run stops
+# phase 6 (b)/(c)'s streams: level 2 (level 0 too before phase 10 came;
+# phase 5 holds the full set at level 0 card == CPU, and the CPU tests
+# resume it in all three streams)
+STATE_LEVELS = (2,)
 GRAPH_LAUNCHES = 20  # launches per CUDA graph when timing a kernel
 M = 31  # device mutators
 BIG_PRI = 300_000_000  # x a score of 8-10 passes 2^31: the int32 bound wraps
@@ -1071,7 +1103,7 @@ def state_io(corpus, mixed, cpu_runs, seed3, dev, card):
         metrics.GLOBAL = metrics.Counters()
         routed_b = 0
         n_rows = len(mixed)
-        for level in (2, 0):
+        for level in STATE_LEVELS:
             want = [p for rows in cpu_runs[level] for p in rows]
             out_b = os.path.join(work, f"b{level}")
             out_c = os.path.join(work, f"c{level}")
@@ -2070,7 +2102,8 @@ def serving_faults(engine, events0, where):
                       "retry:batcher.step") and v != events0.get(k, 0)}
     crashed = {name: st["crashes"] for name, st in
                supervisor.thread_stats().items()
-               if name.startswith(("serving-", "tpu-batcher-"))
+               if name.startswith(("serving-", "tpu-batcher-",
+                                   "fuzzproxy-"))
                and st["crashes"]}
     check(not moved and not crashed and engine.failed == 0,
           f"{where}: faults {moved}, supervisor restarts {crashed}, "
@@ -2303,6 +2336,679 @@ def serving_phase(seed, seed3, dev, card, profile=False):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"serving phase: {time.perf_counter() - t_phase:.1f}s")
+
+
+# phase 10: the fuzzing proxy (``-i``, services/proxy.py) and the ``-m
+# xla`` bridge server (services/xla_bridge.py). The CLI's defaults: the
+# flush batcher at 256 rows x 16384 B and a 20 ms deadline, level 2
+PROXY_EXCHANGES = {"tcp": 32, "http": 16, "http2": 16, "udp": 16,
+                   "connect": 16}  # (a) strict request/response exchanges
+PROXY_CPU_ROWS = 16  # (a) tcp answers held against the CPU plain path
+PROXY_SIZES = (64, 1460)  # packet sizes, bytes (one Ethernet MSS at most)
+PROXY_CONNECTIONS, PROXY_PER_CONN = 256, 16  # (b) the configs[4] load
+PROXY_TIMEOUT = 5.0  # (b) a packet's echo wait; past it, a drop
+BRIDGE_CASES = 4  # (c) FUZZ_BATCH calls of phase 3's corpus
+BRIDGE_HOST_SAMPLES = 16  # (c) FUZZ_CASE and MUX_EVENT samples
+EXCHANGE_WAIT = 120.0  # any one wait of (a), (c) and (d)
+PROXY_WIDTH: dict = {}  # FuzzProxy batcher options (a CPU rehearsal shrinks)
+CLI_ARGS: list = []  # extra args of (d)'s CLI (a CPU rehearsal)
+BRIDGE_ARGS: list = []  # extra args of (c)'s bridge (a CPU rehearsal)
+
+LOAD_PROXY_CLIENT = r"""
+import asyncio, json, sys, time
+conns, per_conn, timeout, payload_path, out_path = sys.argv[1:6]
+conns, per_conn, timeout = int(conns), int(per_conn), float(timeout)
+with open(payload_path, "rb") as f:
+    blob = f.read()
+payloads, off = [], 0
+while off < len(blob):
+    n = int.from_bytes(blob[off:off + 8], "little")
+    payloads.append(blob[off + 8:off + 8 + n])
+    off += 8 + n
+
+async def echo(reader, writer):
+    try:
+        while True:
+            data = await reader.read(65536)
+            if not data:
+                break
+            writer.write(data)
+            await writer.drain()
+    except OSError:
+        pass
+    finally:
+        writer.close()
+
+async def client(c, port, results):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        for k in range(per_conn):
+            body = payloads[(c * per_conn + k) % len(payloads)]
+            t0 = time.perf_counter()
+            writer.write(body)
+            await writer.drain()
+            try:
+                first = await asyncio.wait_for(reader.read(65536), timeout)
+            except asyncio.TimeoutError:
+                results.append([c, k, 0, time.perf_counter() - t0, 0])
+                continue
+            if not first:
+                results.append([c, k, -1, time.perf_counter() - t0, 0])
+                break
+            n = len(first)
+            rtt = time.perf_counter() - t0
+            while True:  # a reply the proxy sent in pieces
+                try:
+                    more = await asyncio.wait_for(reader.read(65536), 0.01)
+                except asyncio.TimeoutError:
+                    break
+                if not more:
+                    break
+                n += len(more)
+            results.append([c, k, 1, rtt, n])
+    finally:
+        writer.close()
+
+async def main():
+    srv = await asyncio.start_server(echo, "127.0.0.1", 0)
+    print("ready", srv.sockets[0].getsockname()[1], flush=True)
+    port = int(sys.stdin.readline())
+    results = []
+    t0 = time.time()
+    await asyncio.gather(*(client(c, port, results) for c in range(conns)))
+    t1 = time.time()
+    with open(out_path, "w") as f:
+        json.dump({"start": t0, "end": t1, "results": results}, f)
+    srv.close()
+
+asyncio.run(main())
+"""
+
+
+def wait_until(cond, what, timeout=EXCHANGE_WAIT) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+class EchoUpstream:
+    """A loopback TCP echo server, a thread per connection; ``received``
+    keeps, per connection, everything it echoed."""
+
+    def __init__(self, echo=True):
+        import socket
+        import threading
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(64)
+        self.port = self.sock.getsockname()[1]
+        self.echo = echo
+        self.received: list = []
+        self.threads = []
+        t = threading.Thread(target=self._accept, daemon=True)
+        t.start()
+        self.threads.append(t)
+
+    def _accept(self):
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            buf = bytearray()
+            self.received.append(buf)
+            t = threading.Thread(target=self._serve, args=(conn, buf),
+                                 daemon=True)
+            t.start()
+            self.threads.append(t)
+
+    def _serve(self, conn, buf):
+        with conn:
+            try:
+                while True:
+                    data = conn.recv(65536)
+                    if not data:
+                        break
+                    buf += data
+                    if self.echo:
+                        conn.sendall(data)
+            except OSError:
+                pass
+
+    def close(self):
+        import socket
+
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.sock.close()
+        for t in self.threads:
+            t.join(5)
+
+
+def proxy_taps(proxy):
+    """Record the proxy's ``_fuzz_maybe`` calls [(direction, in, out)] and
+    the requests its batcher admitted [(direction, request)] (a request
+    carries its rid, data and result)."""
+    import threading
+
+    log, reqs = [], []
+    real_fuzz, real_submit = proxy._fuzz_maybe, proxy.batcher.submit
+    local = threading.local()  # the direction of this pump thread's packet
+
+    def fuzz_maybe(data, prob, npacket, direction, conn_state):
+        local.direction = direction
+        out = real_fuzz(data, prob, npacket, direction, conn_state)
+        log.append((direction, data, out))
+        return out
+
+    def submit(data, opts):
+        req = real_submit(data, opts)
+        reqs.append((local.direction, req))
+        return req
+
+    proxy._fuzz_maybe = fuzz_maybe
+    proxy.batcher.submit = submit
+    return log, reqs
+
+
+def geometry(proxy) -> str:
+    b = proxy.batcher
+    return f"{b.batch} x {b.capacity}, {b.max_latency * 1000:g} ms"
+
+
+def proxy_packets(rng, count, proto):
+    """Packets of PROXY_SIZES in phase 3's three shapes; http:// wraps
+    each body in a request with a Content-Length, http2:// in a DATA
+    frame after the preface, SETTINGS and a HEADERS frame."""
+    from erlamsa_tpu_torch.models import http2
+    from erlamsa_tpu_torch.models.hpack import HpackContext
+
+    lo, hi = PROXY_SIZES
+    bodies = [seed_bytes(rng, i, int(rng.integers(lo, hi + 1)))
+              for i in range(count)]
+    if proto == "http":
+        return [b"POST /p/%d HTTP/1.1\r\nHost: target\r\nContent-Length: "
+                b"%d\r\n\r\n" % (i, len(b)) + b for i, b in enumerate(bodies)]
+    if proto == "http2":
+        block = HpackContext().encode([(b":method", b"POST"),
+                                       (b":path", b"/upload")])
+        first = (http2.PREFACE
+                 + http2.build_frame(http2.T_SETTINGS, 0, 0, bytes(6))
+                 + http2.build_frame(http2.T_HEADERS, http2.F_END_HEADERS, 1,
+                                     block))
+        frames = [http2.build_frame(http2.T_DATA, 0, 1, b) for b in bodies]
+        return [first + frames[0]] + frames[1:]
+    return bodies
+
+
+def strict_tcp(sock, packets, log) -> bytes:
+    """One packet at a time: send it, wait until the proxy fuzzed it, the
+    upstream echoed it and the proxy fuzzed the whole echo, then read
+    everything the proxy sent back. Returns the client's bytes."""
+    import select
+
+    got = bytearray()
+
+    def out_bytes(d):
+        return sum(len(o) for dd, _i, o in list(log) if dd == d)
+
+    for k, pkt in enumerate(packets):
+        sock.sendall(pkt)
+        wait_until(lambda: sum(d == "c->s" for d, _i, _o in list(log))
+                   == k + 1, f"packet {k} (c->s)")
+        wait_until(lambda: sum(len(i) for d, i, _o in list(log)
+                               if d == "s->c") == out_bytes("c->s"),
+                   f"packet {k}'s echo (s->c)")
+        want = out_bytes("s->c")
+        deadline = time.monotonic() + EXCHANGE_WAIT
+        while len(got) < want:
+            r, _w, _x = select.select([sock], [], [],
+                                      max(0.0, deadline - time.monotonic()))
+            check(r, f"packet {k}: the client got {len(got)} of {want} B")
+            chunk = sock.recv(65536)
+            check(chunk, f"packet {k}: the proxy closed the connection")
+            got += chunk
+    return bytes(got)
+
+
+def proxy_exchanges(proto, packets, seed3, dev):
+    """(a) for one protocol: a fresh proxy at -P 1.0,1.0 (udp: echo
+    datagrams), strict exchanges, the counts read around them. Returns
+    (proxy, log, requests, client bytes, upstream bytes, launches,
+    seconds)."""
+    import socket
+
+    from erlamsa_tpu_torch.services.proxy import FuzzProxy
+
+    lport = free_port()
+    up = udp = None
+    if proto == "udp":
+        udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        udp.bind(("127.0.0.1", 0))
+        udp.settimeout(EXCHANGE_WAIT)
+        rport = udp.getsockname()[1]
+    else:
+        up = EchoUpstream()
+        rport = up.port
+    spec = (f"connect://{lport}::" if proto == "connect"
+            else f"{proto}://{lport}:127.0.0.1:{rport}")
+    proxy = FuzzProxy(spec, "1.0,1.0", {"seed": seed3}, device=dev, level=2,
+                      **PROXY_WIDTH)
+    log, reqs = proxy_taps(proxy)
+    flushes0 = proxy.batcher.flushes
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        proxy.start(block=False)
+        if proto == "udp":
+            c = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            c.settimeout(EXCHANGE_WAIT)
+            got, seen = [], []
+            try:
+                for pkt in packets:
+                    c.sendto(pkt, ("127.0.0.1", lport))
+                    data, addr = udp.recvfrom(65536)
+                    seen.append(data)
+                    udp.sendto(data, addr)
+                    got.append(c.recvfrom(65536)[0])
+            finally:
+                c.close()
+            received = b"".join(seen)
+        else:
+            with socket.create_connection(("127.0.0.1", lport),
+                                          timeout=EXCHANGE_WAIT) as c:
+                if proto == "connect":
+                    c.sendall(b"CONNECT 127.0.0.1:%d HTTP/1.1\r\n\r\n" % rport)
+                    check(b" 200 " in c.recv(1024), "(a) connect: no 200")
+                c.settimeout(None)
+                got = strict_tcp(c, packets, log)
+            wait_until(lambda: up.received, "(a) the upstream connection")
+            received = bytes(up.received[0])
+        secs = time.perf_counter() - t
+        launches = counts()["case_rounds"]
+    finally:
+        proxy.stop()
+        if up is not None:
+            up.close()
+        if udp is not None:
+            udp.close()
+    flushes = proxy.batcher.flushes - flushes0
+    check(launches == flushes, f"(a) {proto}: {launches} case-kernel "
+          f"launches in {flushes} flushes")
+    return proxy, log, reqs, got, received, launches, secs
+
+
+def proxy_phase(seed, seed3, dev, card) -> int:
+    """Phase 10: (a) the proxy's bytes per protocol, (b) the
+    BASELINE.json configs[4] load, (c) the bridge over stdio, (d) the
+    CLI's -i in a process of its own. Returns the case-kernel launches of
+    (a), (b) and (c)'s in-process steps."""
+    import socket
+    import threading
+
+    from erlamsa_tpu_torch.models import http2
+    from erlamsa_tpu_torch.services import metrics
+    from erlamsa_tpu_torch.services.proxy import _split_http
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ERLAMSA_PALLAS="2")
+    total = 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_proxy_")
+    # (d)'s CLI starts now, in a process of its own, and is asked after
+    # (c); its upstream records and does not echo
+    cli_up = EchoUpstream(echo=False)
+    cli_port = free_port()
+    cli_log = open(os.path.join(work, "cli.log"), "w+")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "erlamsa_tpu_torch", "-s",
+         ",".join(map(str, seed3)), "-i",
+         f"tcp://{cli_port}:127.0.0.1:{cli_up.port}", "-P", "1.0,1.0",
+         *CLI_ARGS], cwd=here, env=env, stdout=cli_log,
+        stderr=subprocess.STDOUT)
+    killer = threading.Timer(600, cli.kill)
+    killer.start()
+    try:
+        # (a) each protocol's bytes: every admitted request == the
+        # single-shot request step at its (seed, rid)
+        events0 = metrics.GLOBAL.event_counts()
+        first = None
+        for proto, n in PROXY_EXCHANGES.items():
+            packets = proxy_packets(rng, n, proto)
+            proxy, log, reqs, got, received, launches, secs = \
+                proxy_exchanges(proto, packets, seed3, dev)
+            total += launches
+            pairs = [(r.rid, r.data) for _d, r in reqs]
+            check([r.rid for _d, r in reqs] == list(range(len(reqs))),
+                  f"(a) {proto}: request ids are not the submit order")
+            answers = [r.result for _d, r in reqs]
+            check(answers == single_shots(pairs, proxy.batcher.capacity, dev,
+                                          2, seed3),
+                  f"(a) {proto}: the proxy's answers != the single-shot "
+                  "request step")
+            st = proxy.batcher.stats()
+            serving_faults(proxy.batcher, events0, f"(a) {proto}")
+            c2s = [(i, o) for d, i, o in log if d == "c->s"]
+            s2c = [(i, o) for d, i, o in log if d == "s->c"]
+            extra = ""
+            if proto == "tcp":
+                first = (packets[0], answers[0])
+                cpu = single_shots(pairs[:PROXY_CPU_ROWS],
+                                   proxy.batcher.capacity, "cpu", 2, seed3)
+                check(cpu == answers[:PROXY_CPU_ROWS], "(a) tcp: cuda != cpu")
+                extra = f", {PROXY_CPU_ROWS} == the CPU"
+            if proto == "udp":
+                check(got == [o for _i, o in s2c],
+                      "(a) udp: the client's datagrams != the s->c answers")
+                check(received == b"".join(o for _i, o in c2s),
+                      "(a) udp: the upstream's datagrams != the c->s answers")
+            else:
+                check(received == b"".join(o for _i, o in c2s),
+                      f"(a) {proto}: the upstream's bytes != the c->s "
+                      "outputs")
+                check(got == b"".join(o for _i, o in s2c),
+                      f"(a) {proto}: the client's bytes != the s->c outputs")
+            if proto == "http":
+                for inp, out in c2s + s2c:
+                    parts = _split_http(inp)
+                    if parts is None:
+                        continue
+                    head, body = _split_http(out)
+                    n_cl = [int(ln.split(b":", 1)[1]) for ln in
+                            head.split(b"\r\n")
+                            if ln.lower().startswith(b"content-length:")]
+                    check(n_cl == [len(body)],
+                          "(a) http: Content-Length not fixed up")
+                extra = ", Content-Length fixed up"
+            if proto == "http2":
+                frames, rem = http2.parse_frames(received)
+                check(rem == b"", "(a) http2: a frame length is wrong")
+                sent, _r = http2.parse_frames(b"".join(packets))
+                check([f[:3] for f in frames] == [f[:3] for f in sent],
+                      "(a) http2: the frame sequence changed")
+                check(all(a == b for a, b in zip(frames, sent)
+                          if a[0] != http2.T_DATA),
+                      "(a) http2: a frame other than DATA changed")
+                check([f[3] for f in frames if f[0] == http2.T_DATA]
+                      == [r.result for d, r in reqs if d == "c->s"],
+                      "(a) http2: DATA payloads != the batcher's answers")
+                extra = ", only DATA changed, frame lengths right"
+            print(f"proxy (a) {proto}:// -P 1.0,1.0 (level 2, "
+                  f"{geometry(proxy)}): {n} strict exchanges of "
+                  f"{min(map(len, packets))}-{max(map(len, packets))} B in "
+                  f"{secs:.2f}s, "
+                  f"{len(reqs)} requests in {st['steps']} flushes, "
+                  f"{launches} case-kernel launches, {st['escapes']} "
+                  f"escapes; every answer == the single-shot request step"
+                  f"{extra}")
+
+        # (b) the configs[4] load: 256 keep-alive connections, 16 packets
+        # each, through tcp:// at -P 1.0,1.0 to the load process's echo
+        total += proxy_load(rng, seed3, dev, work, card)
+
+        # (c) the bridge over stdio, as ERLAMSA_XLA_BRIDGE_CMD starts it
+        total += bridge_run(np.random.default_rng(seed), seed3, dev, env,
+                            here)
+
+        # (d) the CLI's -i forwards (a)'s first answer
+        t = time.perf_counter()
+        deadline = time.monotonic() + EXCHANGE_WAIT
+        while True:
+            if cli.poll() is not None:
+                cli_log.seek(0)
+                check(False, "(d) the CLI exited: " + cli_log.read()[-2000:])
+            try:
+                c = socket.create_connection(("127.0.0.1", cli_port),
+                                             timeout=EXCHANGE_WAIT)
+                break
+            except ConnectionRefusedError:
+                check(time.monotonic() < deadline, "(d) the CLI never "
+                      "listened")
+                time.sleep(0.1)
+        with c:
+            c.sendall(first[0])
+            wait_until(lambda: cli_up.received
+                       and len(cli_up.received[0]) >= len(first[1]),
+                       "(d) the CLI's forwarded packet")
+        time.sleep(0.05)
+        check(bytes(cli_up.received[0]) == first[1],
+              "(d) the CLI forwarded other bytes than (a)'s first answer")
+        print(f"proxy (d) python -m erlamsa_tpu_torch -i tcp://... -P 1.0,1.0 "
+              f"(ERLAMSA_PALLAS=2, its own process): the first packet's "
+              f"forwarded bytes == (a)'s first answer ({len(first[1])} B; "
+              f"{time.perf_counter() - t:.1f}s after (c))")
+    finally:
+        killer.cancel()
+        if cli.poll() is None:
+            cli.terminate()
+            try:
+                cli.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                cli.kill()
+                cli.wait()
+        cli_log.close()
+        cli_up.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"proxy phase: {time.perf_counter() - t_phase:.1f}s, {total} "
+          f"case-kernel launches")
+    return total
+
+
+def proxy_load(rng, seed3, dev, work, card) -> int:
+    """(b): PROXY_CONNECTIONS keep-alive connections from a load process
+    of its own (stdlib asyncio; it also runs the echo upstream), each
+    sending PROXY_PER_CONN packets and waiting for the echo. Returns the
+    case-kernel launches."""
+    import torch
+
+    from erlamsa_tpu_torch.services import metrics
+    from erlamsa_tpu_torch.services.proxy import FuzzProxy
+
+    lo, hi = PROXY_SIZES
+    payloads = [seed_bytes(rng, i, int(rng.integers(lo, hi + 1)))
+                for i in range(PROXY_CONNECTIONS * PROXY_PER_CONN)]
+    ppath = os.path.join(work, "proxy-payloads.bin")
+    with open(ppath, "wb") as f:
+        for p in payloads:
+            f.write(len(p).to_bytes(8, "little") + p)
+    out = os.path.join(work, "proxy-load.json")
+    load = subprocess.Popen(
+        [sys.executable, "-c", LOAD_PROXY_CLIENT, str(PROXY_CONNECTIONS),
+         str(PROXY_PER_CONN), str(PROXY_TIMEOUT), ppath, out],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    proxy = None
+    try:
+        line = load.stdout.readline().split()
+        check(line[:1] == ["ready"], "(b) the load process did not start")
+        lport = free_port()
+        proxy = FuzzProxy(f"tcp://{lport}:127.0.0.1:{line[1]}", "1.0,1.0",
+                          {"seed": seed3}, device=dev, level=2, **PROXY_WIDTH)
+        st0 = proxy.batcher.stats()
+        events0 = metrics.GLOBAL.event_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        proxy.start(block=False)
+        reset_counts()
+        load.stdin.write(f"{lport}\n")
+        load.stdin.flush()
+        check(load.wait(timeout=600) == 0, "(b) the load process failed")
+        launches = counts()["case_rounds"]
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        st = proxy.batcher.stats()
+    finally:
+        if load.poll() is None:
+            load.kill()
+            load.wait()
+        load.stdin.close()
+        load.stdout.close()
+        if proxy is not None:
+            proxy.stop()
+    with open(out) as f:
+        got = json.load(f)
+    res = got["results"]
+    wall = got["end"] - got["start"]
+    flushes, served, escapes = (st[k] - st0[k] for k in
+                                ("steps", "served", "escapes"))
+    ok = [r for r in res if r[2] == 1]
+    dropped = sum(1 for r in res if r[2] == 0)
+    closed = sum(1 for r in res if r[2] == -1)
+    check(len(res) == PROXY_CONNECTIONS * PROXY_PER_CONN and not closed,
+          f"(b) {len(res)} exchanges, {closed} connections closed")
+    check(launches == flushes, f"(b) {launches} case-kernel launches in "
+          f"{flushes} flushes")
+    check(len(ok) > 0.9 * len(res), f"(b) only {len(ok)} of {len(res)} "
+          "exchanges answered")
+    serving_faults(proxy.batcher, events0, "(b)")
+    rtt = np.array([r[3] for r in ok])
+    print(f"proxy (b) configs[4] load: tcp:// -P 1.0,1.0 (level 2, "
+          f"{geometry(proxy)}), {PROXY_CONNECTIONS} keep-alive connections "
+          f"x {PROXY_PER_CONN} packets of {lo}-{hi} B = {len(res)} "
+          f"exchanges in {wall:.2f}s: {len(ok) / wall:.1f} exchanges/s, "
+          f"{(served + escapes) / wall:.1f} fuzzed packets/s, round trip "
+          f"p50 {np.percentile(rtt, 50) * 1000:.1f} ms, p99 "
+          f"{np.percentile(rtt, 99) * 1000:.1f} ms; {flushes} flushes, fill "
+          f"{served / max(1, flushes * st['slots']):.4f}, {launches} "
+          f"case-kernel launches, {escapes} escapes, {dropped} dropped "
+          f"(no echo in {PROXY_TIMEOUT:g}s: a packet fuzzed to nothing), "
+          f"peak device memory {peak} B; no give-up or restart; card {card}")
+    return launches
+
+
+def bridge_frames(proc, frames):
+    """Write request frames to the bridge process, read one response
+    frame each."""
+    import struct
+
+    from erlamsa_tpu_torch.services import xla_bridge as xb
+
+    out = []
+    for op, header, payload in frames:
+        proc.stdin.write(xb.encode_frame(op, header, payload))
+        proc.stdin.flush()
+        hdr = proc.stdout.read(4)
+        check(len(hdr) == 4, "(c) the bridge closed its stdout")
+        (ln,) = struct.unpack(">I", hdr)
+        body = proc.stdout.read(ln)
+        check(len(body) == ln, "(c) a truncated frame")
+        out.append(hdr + body)
+    return out
+
+
+def bridge_run(rng, seed3, dev, env, here) -> int:
+    """(c): the bridge server as a process of its own over stdio: HELLO,
+    FUZZ_BATCH tpu of phase 3's corpus for BRIDGE_CASES cases == the
+    in-process make_fuzzer step on the card (one case-kernel launch a
+    call), FUZZ_CASE and MUX_EVENT == the handlers on the CPU, an unknown
+    name answers 0xFF and the next frame is served. Returns the in-process
+    steps' case-kernel launches."""
+    import threading
+
+    from erlamsa_tpu_torch.services import xla_bridge as xb
+
+    t = time.perf_counter()
+    corpus = make_corpus(rng, BATCH)
+    lens = [len(s) for s in corpus]
+    payload = b"".join(corpus)
+    seed = list(seed3)
+    err = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "erlamsa_tpu_torch.services.xla_bridge",
+         *BRIDGE_ARGS], cwd=here, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=err)
+    killer = threading.Timer(600, proc.kill)
+    killer.start()
+    try:
+        t_start = time.perf_counter()
+        hello = bridge_frames(proc, [(xb.OP_HELLO, {"version": 1}, b"")])[0]
+        check(hello == xb.BridgeServer().handle(xb.OP_HELLO, {}, b""),
+              "(c) HELLO")
+        t_ready = time.perf_counter() - t_start
+        got, secs = [], []
+        for case in range(BRIDGE_CASES):
+            t0 = time.perf_counter()
+            got += bridge_frames(proc, [(xb.OP_FUZZ_BATCH,
+                                         {"seed": seed, "case": case,
+                                          "backend": "tpu", "lens": lens},
+                                         payload)])
+            secs.append(time.perf_counter() - t0)
+        host = BRIDGE_HOST_SAMPLES
+        small = [s[:int(rng.integers(16, 512))] for s in corpus[:host]]
+        state = [int(x) for x in rng.integers(1, 30000, 3)]
+        requests = [(xb.OP_FUZZ_CASE, {"seed": [seed3[0], 22, i]}, s)
+                    for i, s in enumerate(small)]
+        mux = []
+        cpu = xb.BridgeServer(device="cpu")
+        cpu.handle(xb.OP_HELLO, {}, b"")
+        for i, s in enumerate(small):
+            header = {"state": state}
+            resp = bridge_frames(proc, [(xb.OP_MUX_EVENT, header, s)])[0]
+            want = cpu.handle(xb.OP_MUX_EVENT, header, s)
+            check(resp == want, f"(c) MUX_EVENT {i} != the CPU handler")
+            state = xb.decode_body(resp[4:])[1]["state"]
+            mux.append(resp)
+        cases = bridge_frames(proc, requests)
+        check(cases == [cpu.handle(*r) for r in requests],
+              "(c) FUZZ_CASE != the CPU handler")
+        bad, ping = bridge_frames(proc, [
+            (xb.OP_FUZZ_CASE, {"seed": seed, "mutations": "nosuch"}, b"x"),
+            (xb.OP_PING, {}, b"")])
+        check(xb.decode_body(bad[4:])[0] == xb.OP_ERROR and
+              "nosuch" in xb.decode_body(bad[4:])[1]["error"],
+              "(c) an unknown mutation name did not answer 0xFF")
+        check(xb.decode_body(ping[4:])[0] == xb.OP_PING | xb.RESP,
+              "(c) the frame after the error was not served")
+        for resp in got + mux + cases:
+            check(xb.decode_body(resp[4:])[0] != xb.OP_ERROR,
+                  "(c) an error frame: " + str(xb.decode_body(resp[4:])[1]))
+        proc.stdin.close()
+        check(proc.wait(timeout=60) == 0, "(c) the bridge did not exit")
+        check(proc.stdout.read() == b"", "(c) bytes on stdout past the "
+              "last frame")
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
+    # the same FUZZ_BATCH in process, the counts read around each call
+    launches, in_secs = 0, []
+    for case in range(BRIDGE_CASES):
+        reset_counts()
+        t0 = time.perf_counter()
+        h, p = xb._handle_fuzz_batch({"seed": seed, "case": case,
+                                      "backend": "tpu", "lens": lens},
+                                     payload, dev, 2)
+        in_secs.append(time.perf_counter() - t0)
+        n = counts()["case_rounds"]
+        check(n == 1, f"(c) the in-process step launched the case kernel "
+              f"{n} times")
+        launches += n
+        check(got[case] == xb.encode_frame(xb.OP_FUZZ_BATCH | xb.RESP, h, p),
+              f"(c) case {case}: the bridge's FUZZ_BATCH != the in-process "
+              "step")
+    frame_in = len(xb.encode_frame(xb.OP_FUZZ_BATCH, {"lens": lens}, payload))
+    print(f"bridge (c) python -m erlamsa_tpu_torch.services.xla_bridge "
+          f"(stdio, ERLAMSA_PALLAS=2): HELLO {t_ready:.1f}s after start; "
+          f"FUZZ_BATCH tpu of {BATCH} seeds of {min(lens)}-{max(lens)} B x "
+          f"{BRIDGE_CASES} cases == the in-process make_fuzzer step "
+          f"({launches} case-kernel launches, one a call): "
+          f"{BATCH * BRIDGE_CASES / sum(secs):.1f} samples/s through the "
+          f"bridge ({', '.join(f'{s:.3f}' for s in secs)} s a call, frames "
+          f"of {frame_in} B in and {', '.join(str(len(g)) for g in got)} B "
+          f"out) against {BATCH * BRIDGE_CASES / sum(in_secs):.1f} in "
+          f"process ({', '.join(f'{s:.3f}' for s in in_secs)} s); "
+          f"{BRIDGE_HOST_SAMPLES} FUZZ_CASE and MUX_EVENT frames == the "
+          f"CPU handlers, an unknown name answered 0xFF and the next frame "
+          f"was served ({time.perf_counter() - t:.1f}s)")
+    return launches
 
 
 def free_port() -> int:
@@ -2553,6 +3259,9 @@ def main() -> int:
     ap.add_argument("--serving-only", action="store_true",
                     help="build the kernels and run phase 9 alone (no "
                          "result lines)")
+    ap.add_argument("--proxy-only", action="store_true",
+                    help="build the kernels and run phase 10 alone (no "
+                         "result lines)")
     ap.add_argument("--build-store", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 8's store, in a process
     args = ap.parse_args()
@@ -2575,6 +3284,8 @@ def main() -> int:
         return full_set_alone(args.seed)
     if args.serving_only:
         return serving_alone(args.seed, t_start, args.profile)
+    if args.proxy_only:
+        return proxy_alone(args.seed, t_start)
     # phase 8's campaign store builds in a process of its own meanwhile
     from erlamsa_tpu_torch.ops import cuda_build
 
@@ -2636,8 +3347,24 @@ def serving_alone(seed, t_start, profile) -> int:
     return 0
 
 
+def proxy_alone(seed, t_start) -> int:
+    """--proxy-only: build the kernels and run phase 10 alone."""
+    import torch
+
+    from erlamsa_tpu_torch.ops import cuda_build
+
+    for mod in ("jax", "erlamsa_tpu"):
+        check(mod not in sys.modules, f"{mod} was imported")
+    card = card_line()
+    print(f"card: {card}")
+    cuda_build.build_all(["round_apply", "case_rounds", "randmask"])
+    proxy_phase(seed, (seed, 22, 33), torch.device("cuda"), card)
+    print(f"chip_smoke --proxy-only: {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
 def phases(args, here, t_start, build) -> int:
-    """Phases 1-9 and the kernel timings; ``build`` is phase 8's store
+    """Phases 1-10 and the kernel timings; ``build`` is phase 8's store
     build (process, directory)."""
     import torch
 
@@ -2762,6 +3489,8 @@ def phases(args, here, t_start, build) -> int:
     feedback_phase(args.seed, seed3, dev, card, build)
     # 9. the FaaS serving tier through serve() and the CLI's -H
     serving_phase(args.seed, seed3, dev, card, profile=args.profile)
+    # 10. the fuzzing proxy (-i) and the bridge server (-m xla)
+    proxy_launches = proxy_phase(args.seed, seed3, dev, card)
 
     rows = []
     # round kernel on the ERLAMSA_PALLAS=1 path's first-round inputs
@@ -2815,7 +3544,8 @@ def phases(args, here, t_start, build) -> int:
     moved = 2 * B * L + B * (16 + 4 + 4 + 2 * M * 4 + 4 + 16 * 4) + M * 8
     bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("case_rounds", "erlamsa_tpu/ops/pallas_rounds.py:1180",
-                 launches[2]["case_rounds"], max(errs["case_rounds"], err),
+                 launches[2]["case_rounds"] + proxy_launches,
+                 max(errs["case_rounds"], err),
                  ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
                  wrap_ms))
 

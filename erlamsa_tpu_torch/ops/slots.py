@@ -40,7 +40,7 @@ from . import case_rounds, prng, round_apply
 from .fused import pallas_level
 from .paged import (PAGE, RESERVED_PAGES, TRASH_PAGE, gather_rows, new_arena,
                     upload_pages)
-from .pipeline import fuzz_batch, resolve_priorities
+from .pipeline import fuzz_batch, make_fuzzer, resolve_priorities
 from .registry import registry_version
 from .scheduler import init_scores
 
@@ -271,6 +271,19 @@ class StepCache:
             _settle(dev)
 
         return self._get(key, build, warm)
+
+    def fuzzer_step(self, capacity: int, batch: int, device=None,
+                    level=None):
+        """``make_fuzzer``'s step (the bridge's FUZZ_BATCH); warming loads
+        the stream's kernel library and runs no step."""
+        dev, level = resolve_device(device), pallas_level(level)
+        key = ("fuzzer", capacity, batch, registry_version(), level,
+               str(dev))
+
+        def build():
+            return make_fuzzer(capacity, batch, device=dev, level=level)[0]
+
+        return self._get(key, build, lambda _step: prepare_kernels(dev, level))
 
     def stats(self) -> dict:
         with self._lock:

@@ -6,7 +6,10 @@ reference, and --state checkpoints in the JAX CLI's format. With
 ``--feedback --corpus DIR`` it runs the closed-loop corpus engine
 (corpus/runner.py) instead, with its --pipeline, --layout, --arena-*
 and --adopt options. With ``-H HOST:PORT`` it serves fuzzing as a
-service over HTTP from the device engines (services/faas.py).
+service over HTTP from the device engines (services/faas.py). With
+``-i proto://...`` it runs the fuzzing MitM proxy (services/proxy.py),
+its packets mutated on the card by the flush batcher. ``-e MODULE``
+loads an external module (services/external.py) before any mode.
 
     python -m erlamsa_tpu_torch -s 1,2,3 -n 4 --batch 4096 seeds/*
     python -m erlamsa_tpu_torch -s 1,2,3 -n 100 --state run.npz -r seeds/
@@ -14,6 +17,7 @@ service over HTTP from the device engines (services/faas.py).
     python -m erlamsa_tpu_torch -s 1,2,3 -n 8 --feedback --corpus DIR \
         --layout arena --adopt seeds/*
     python -m erlamsa_tpu_torch -s 1,2,3 -H 127.0.0.1:17771
+    python -m erlamsa_tpu_torch -s 1,2,3 -i tcp://8080:127.0.0.1:80 -P 1.0,1.0
 """
 
 from __future__ import annotations
@@ -45,12 +49,17 @@ def _urandom_seed() -> tuple[int, int, int]:
     return (word(), word(), word())
 
 
-def parse_actions(spec: str | None, defaults, what: str
-                  ) -> list[tuple[str, int]]:
+class UnknownAction(ValueError):
+    """A mutation, pattern or generator name that is not in the set."""
+
+
+def read_actions(spec: str | None, defaults, what: str
+                 ) -> list[tuple[str, int]]:
     """'name=pri,name,...' -> [(name, pri)] over ``defaults``
     (erlamsa_tpu/services/cli.py:_parse_actions): no spec gives the whole
-    default set, a bare name takes its default priority, and an unknown
-    name exits with one line naming ``what``."""
+    default set and a bare name takes its default priority. An unknown
+    name raises UnknownAction naming ``what``, a bad priority ValueError:
+    a server answers either as an error and goes on serving."""
     if spec in (None, "", "default"):
         return list(defaults)
     known = dict(defaults)
@@ -62,8 +71,18 @@ def parse_actions(spec: str | None, defaults, what: str
         out.append((name, int(pri) if eq else known.get(name, 1)))
     bad = [n for n, _ in out if n not in known]
     if bad:
-        raise SystemExit(f"erlamsa_tpu_torch: unknown {what} name(s): {bad}")
+        raise UnknownAction(f"unknown {what} name(s): {bad}")
     return out
+
+
+def parse_actions(spec: str | None, defaults, what: str
+                  ) -> list[tuple[str, int]]:
+    """read_actions for the command line: an unknown name exits with one
+    line."""
+    try:
+        return read_actions(spec, defaults, what)
+    except UnknownAction as e:
+        raise SystemExit(f"erlamsa_tpu_torch: {e}") from None
 
 
 def parse_mutations(spec: str | None) -> list[tuple[str, int]]:
@@ -94,6 +113,26 @@ def _serve(args, opts: dict, device) -> int:
     opts["tenant_burst"] = args.tenant_burst
     return serve(host or "0.0.0.0", int(port), opts, backend="tpu",
                  batch=args.batch, device=device)
+
+
+def _load_external(name: str, opts: dict) -> None:
+    """-e: the module's custom mutations and post hook go into ``opts``
+    as erlamsa_tpu/services/cli.py puts them; a module that does not load
+    exits with one line."""
+    from .external import load_external
+
+    try:
+        ext = load_external(name)
+        gen = ext.generator() if ext else None
+    except (ImportError, ValueError) as e:
+        raise SystemExit(f"erlamsa_tpu_torch: -e {name}: {e}") from None
+    if ext:
+        opts["external_module"] = ext
+        if gen is not None:
+            opts["external_generator"] = gen
+        post = ext.post()
+        if post is not None:
+            opts["post"] = post
 
 
 def main(argv=None) -> int:
@@ -207,8 +246,9 @@ def main(argv=None) -> int:
                    help="continuous-engine slot count (device rows per "
                         "step; default 64)")
     p.add_argument("--capacity", type=int, default=None, metavar="BYTES",
-                   help="serving working width in bytes (default 16384); "
-                        "longer requests overflow to the host oracle")
+                   help="serving and -i proxy working width in bytes "
+                        "(default 16384); longer requests and packets "
+                        "overflow to the host oracle")
     p.add_argument("--queue-cap", type=int, default=1024, metavar="N",
                    help="-H admission backlog bound: requests beyond it "
                         "shed with HTTP 429 + Retry-After (0 = unbounded)")
@@ -223,6 +263,23 @@ def main(argv=None) -> int:
     p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                    help="serve Prometheus text exposition on PORT/metrics "
                         "(-H also serves GET /metrics without it)")
+    p.add_argument("-i", "--proxy", default=None,
+                   help="fuzzing proxy spec proto://lport:rhost:rport "
+                        "(tcp, udp, http, http2, tls; connect://lport::; "
+                        "serial://dev1@baud:dev2@baud); packets mutate on "
+                        "the device batcher (256 rows x 16384 B, 20 ms "
+                        "deadline), longer ones on the host oracle")
+    p.add_argument("-P", "--proxy-prob", default="0.1,0.1",
+                   help="proxy fuzzing probabilities c->s,s->c")
+    p.add_argument("-k", "--bypass", type=int, default=0,
+                   help="pass through the first K proxy packets unfuzzed")
+    p.add_argument("--ascent", type=float, default=0.0,
+                   help="proxy probability ascent coefficient")
+    p.add_argument("--certfile", default=None, help="TLS cert for tls:// proxy")
+    p.add_argument("--keyfile", default=None, help="TLS key for tls:// proxy")
+    p.add_argument("-e", "--external", default=None,
+                   help="python module with capabilities() (custom "
+                        "mutations and a post hook for the host oracle)")
     p.add_argument("--batch", type=int, default=1024,
                    help="batch size (and the -H flush engine's rows)")
     p.add_argument("--device", default=None,
@@ -264,9 +321,15 @@ def main(argv=None) -> int:
         "arena_page": args.arena_page,
         "arena_classes": args.arena_classes,
         "adopt": args.adopt,
+        "certfile": args.certfile,
+        "keyfile": args.keyfile,
         **({"device_capacity_max": args.device_capacity_max}
            if args.device_capacity_max is not None else {}),
     }
+    # the external module loads before the service modes, so -e applies
+    # to the proxy's oracle escape too
+    if args.external:
+        _load_external(args.external, opts)
     if args.metrics_port:
         from ..obs import prom
 
@@ -274,6 +337,14 @@ def main(argv=None) -> int:
     try:
         if args.httpsvc:
             return _serve(args, opts, device)
+        if args.proxy:
+            from .proxy import FuzzProxy
+
+            width = {} if args.capacity is None else {
+                "capacity": args.capacity}
+            return FuzzProxy(args.proxy, args.proxy_prob, opts,
+                             bypass=args.bypass, ascent=args.ascent,
+                             device=device, **width).start(block=True)
         if args.feedback:
             # the closed loop: energy-scheduled store draws, bucketed
             # device batches, bus events promoting seeds
