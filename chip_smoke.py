@@ -51,10 +51,11 @@ Phases, each fatal on failure:
   5. mixed   (run before phase 4, beside phase 8's store build) a
              128-row corpus (one row each of XML, JSON, zip, gzip,
              base64 and a URI, the rest small seeds of the three shapes)
-             through the full set for 2 cases (3 rows x 256 before phase 8
-             came, 2 x 256 before phase 9) on the card and on the CPU,
-             in both streams: every row's bytes equal, at least one row
-             host-routed, none abandoned;
+             through the full set for 2 cases at level 2 and 1 at level
+             0 (3 rows x 256 before phase 8 came, 2 x 256 before phase 9,
+             2 cases at level 0 before phase 11) on the card and on the
+             CPU: every row's bytes equal, at least one row host-routed,
+             none abandoned;
   6. state   resumable runs and output sinks through services/batchrunner.
              run_batch (``python -m erlamsa_tpu_torch`` with --state and -o,
              files through services/out.py): (a) phase 3's corpus with the
@@ -87,8 +88,9 @@ Phases, each fatal on failure:
              samples/s, host-routed share, host wait against device
              seconds, struct rows and struct step time (CUDA events) per
              case, tokenizer seconds; (c) phase 5's 128-row corpus with
-             --struct device at levels 2 and 0, card == CPU, and at level
-             2 stopped after case 1 and resumed from --state == straight.
+             --struct device at levels 2 (2 cases) and 0 (1 case, 2 before
+             phase 11 came), card == CPU, and at level 2 stopped after
+             case 1 and resumed from --state == straight.
 
   8. feedback the feedback corpus engine (``--feedback --corpus DIR``,
              corpus/runner.py): (a) each paged op (ops/paged.py) on a
@@ -161,6 +163,33 @@ Phases, each fatal on failure:
              frame is served, nothing on stdout but frames; (d) ``python
              -m erlamsa_tpu_torch -i tcp://...`` in a process of its own
              forwards (a)'s first answer.
+ 11. coverage the coverage plane (``--feedback --coverage --distill``,
+             ops/coverage.py, corpus/distill.py, services/monitors.py
+             CoverageHub) and the host tier: (a) popcount, fold_maps and
+             batch_gains on the card == their numpy twins, tolerance 0,
+             at N = 1, 2, 4096 and 4097 maps of 1,024 B and 65,536 B at
+             densities 0, 1/256, 1/2 and 1 (the twins run in a process
+             of their own started with the script); the fold's device
+             time at 4096 x 1024 B; (b) a 64-seed store of 64 B-4 KB, 64
+             rows x 2 cases, arena async --adopt: the hash-novelty
+             baseline, a --coverage --distill run and a run whose hub
+             died under monitor.ingest:*, each on the card == on the CPU
+             file for file (coverage stats, the ``# distill:`` line and
+             the retired ids too), the dead hub's run == the baseline; a
+             process of its own sends a frame for every (case, slot)
+             before each run; (c) phase 8's store at batch 4096, 2
+             cases, level 2, arena async --adopt --coverage --distill,
+             frames for every slot: samples/s beside phase 8's arena
+             --adopt, the coverage stage, maps folded, new edges,
+             offspring, retired seeds, peak device memory, the case
+             kernel once per class a case; (d) ``python -m
+             erlamsa_tpu_torch --backend oracle`` for BASELINE.json
+             configs[0] and with -w 2 -n 8 -o DIR/%n: md5s == the JAX
+             CLI's (the constants the CPU tests hold to it), beside (b);
+             phase 3's corpus through the CLI at level 2, 1 case, with
+             --trace FILE --xprof DIR == without, the trace's runner
+             spans, the profiler's case kernel, the span totals against
+             the device's kernel time.
 
 After each of phases 4 to 7, host-pool workers still running rows
 abandoned past -T are stopped, so they take no cores from a later phase.
@@ -178,6 +207,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --feedback-only
     python3 chip_smoke.py --serving-only
     python3 chip_smoke.py --proxy-only
+    python3 chip_smoke.py --coverage-only
 
 --profile   trace one level-2 case at the main path's shape under
             torch.profiler (CPU and CUDA): the ten largest device ops,
@@ -197,6 +227,8 @@ checkout of the repository, it exits non-zero and prints no result.
             result lines.
 --serving-only  build the kernels and run phase 9 alone; no result lines.
 --proxy-only  build the kernels and run phase 10 alone; no result lines.
+--coverage-only  build the kernels and run phase 11 alone, phase 8's
+            store built meanwhile ((c) waits for it); no result lines.
 --full-set-only  build the kernels and run phase 4's level-2 run alone,
             at 2 and at 4 cases, with no store build beside it: a run's
             fixed seconds and its seconds a case; no result lines.
@@ -283,6 +315,9 @@ GRAPH_LAUNCHES = 20  # launches per CUDA graph when timing a kernel
 M = 31  # device mutators
 BIG_PRI = 300_000_000  # x a score of 8-10 passes 2^31: the int32 bound wraps
 MIXED_ROWS, MIXED_CASES = 128, 2  # the CUDA == CPU run of the full set
+# phases 5 and 7 (c): cases of the level-0 card == CPU legs (2 before
+# phase 11 came; level 0's class step is phase 3's, held there too)
+MIXED_CASES_L0 = 1
 FULL_CASES = 2  # phase 4: cases of each full-set run at full width
 COMPARE_CASES = 2  # cases of each composite run --compare times
 STREAMS = ((2, "case kernel"), (1, "round kernel"), (0, "composite"))
@@ -870,12 +905,13 @@ def full_set_cuda_vs_cpu(level, corpus, seed3, dev):
     are compared, not subsets). Returns the CPU run's rows per case."""
     from erlamsa_tpu_torch.services.batchrunner import hybrid_cases
 
+    cases = MIXED_CASES if level else MIXED_CASES_L0
     runs, stats = {}, {}
     for d in (dev, "cpu"):
         stats[str(d)] = {}
         t = time.perf_counter()
         runs[str(d)] = [res for _case, res in hybrid_cases(
-            corpus, seed3, None, MIXED_CASES, d, level=level,
+            corpus, seed3, None, cases, d, level=level,
             stats=stats[str(d)])]
         stats[str(d)]["s"] = time.perf_counter() - t
     g, c = stats[str(dev)], stats["cpu"]
@@ -889,7 +925,7 @@ def full_set_cuda_vs_cpu(level, corpus, seed3, dev):
     check(g["abandoned"] == c["abandoned"] == 0,
           f"level {level}: abandoned {g['abandoned']} / {c['abandoned']}")
     print(f"full set cuda == cpu, ERLAMSA_PALLAS={level or 'unset'}: "
-          f"{len(corpus)} rows x {MIXED_CASES} cases equal, "
+          f"{len(corpus)} rows x {cases} cases equal, "
           f"{g['host_routed']} host-routed, 0 abandoned "
           f"({g['s']:.1f}s on the card, {c['s']:.1f}s on the CPU)")
     return runs["cpu"]
@@ -1452,17 +1488,18 @@ def struct_phase(rng, mixed, seed3, dev, card, with_off=False):
         # MIXED_SPLIT cases and resumed from --state
         n_rows = len(mixed)
         for level in (2, 0):
+            cases = MIXED_CASES if level else MIXED_CASES_L0
             got, secs = {}, {}
             for name, device in (("card", dev), ("cpu", "cpu")):
                 d = os.path.join(work, f"c{level}-{name}")
                 os.makedirs(d)
                 t = time.perf_counter()
-                st = run(mixed, MIXED_CASES, os.path.join(d, "%n"), "device",
+                st = run(mixed, cases, os.path.join(d, "%n"), "device",
                          device=device, level=level)
                 secs[name] = time.perf_counter() - t
                 check(st["abandoned"] == 0,
                       f"(c) level {level} {name}: {st['abandoned']} abandoned")
-                got[name] = read_files(d, n_rows * MIXED_CASES)
+                got[name] = read_files(d, n_rows * cases)
             diff = sum(a != b for a, b in zip(got["card"], got["cpu"]))
             check(diff == 0, f"(c) level {level}: {diff} files differ "
                   "between cuda and cpu with --struct device")
@@ -1483,7 +1520,7 @@ def struct_phase(rng, mixed, seed3, dev, card, with_off=False):
                 note = (f"; {MIXED_SPLIT} + {MIXED_CASES - MIXED_SPLIT} "
                         "cases resumed from --state == straight")
             print(f"struct (c) --struct device ERLAMSA_PALLAS="
-                  f"{level or 'unset'}: {n_rows} mixed rows x {MIXED_CASES} "
+                  f"{level or 'unset'}: {n_rows} mixed rows x {cases} "
                   f"cases, cuda == cpu ({secs['card']:.1f}s on the card, "
                   f"{secs['cpu']:.1f}s on the CPU){note}")
     finally:
@@ -1681,6 +1718,54 @@ def arena_sequence(device):
     return obs
 
 
+def campaign_run(name, store, out, seed3, n, batch, device, **extra):
+    """One run_corpus_batch run (the loop behind ``python -m
+    erlamsa_tpu_torch --feedback --corpus DIR``) at level 2 with the 30
+    device codes, its files to out/%n: returns (stats, metrics snapshot,
+    launches, digests of its files, seconds, peak device bytes). It fails
+    unless the run returns 0, undegraded, with the case kernel once per
+    class a case on the card."""
+    import torch
+
+    from erlamsa_tpu_torch.corpus.runner import run_corpus_batch
+    from erlamsa_tpu_torch.ops.registry import DEVICE_CODES
+    from erlamsa_tpu_torch.oracle.mutations import default_mutations
+    from erlamsa_tpu_torch.services import metrics
+
+    os.makedirs(out, exist_ok=True)
+    stats = {}
+    opts = {"corpus_dir": store, "seed": seed3, "n": n, "feedback": True,
+            "mutations": [(c, p) for c, p in default_mutations()
+                          if c in DEVICE_CODES], "_stats": stats,
+            "output": os.path.join(out, "%n"), **extra}
+    on_cuda = torch.device(device).type == "cuda"
+    metrics.GLOBAL = metrics.Counters()
+    reset_counts()
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    check(run_corpus_batch(opts, batch=batch, device=device, level=2) == 0,
+          f"{name}: the run failed")
+    if on_cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    snap = metrics.GLOBAL.snapshot()
+    res = snap["resilience"]
+    check(not res["degraded"] and not res["events"].get("device_lost"),
+          f"{name}: degraded {res['degraded']}, events {res['events']}")
+    # one step per class a case, each launching the case kernel once
+    steps = sum(b["batches"] for b in stats["buckets"].values())
+    if on_cuda:
+        check(launches["case_rounds"] == steps >= len(stats["schedules"])
+              and launches["round_apply"] == 0,
+              f"{name}: launches {launches}, want the case kernel once "
+              f"per class a case ({steps} steps)")
+    return stats, snap, launches, digests(out, batch * n), secs, peak
+
+
 def feedback_phase(seed, seed3, dev, card, build):
     """Phase 8: the feedback corpus engine through run_corpus_batch (the
     loop behind ``python -m erlamsa_tpu_torch --feedback --corpus DIR``)
@@ -1689,14 +1774,10 @@ def feedback_phase(seed, seed3, dev, card, build):
     import shutil
     import tempfile
 
-    import torch
-
-    from erlamsa_tpu_torch.corpus.runner import run_corpus_batch
     from erlamsa_tpu_torch.corpus.store import CorpusStore
     from erlamsa_tpu_torch.ops import cuda_build
     from erlamsa_tpu_torch.ops.registry import DEVICE_CODES
     from erlamsa_tpu_torch.oracle.mutations import default_mutations
-    from erlamsa_tpu_torch.services import metrics
 
     t_phase = time.perf_counter()
     paged_vs_cpu(np.random.default_rng(seed + 4), dev)
@@ -1714,62 +1795,32 @@ def feedback_phase(seed, seed3, dev, card, build):
           f"of its own started with the script; phase 8 waited "
           f"{waited:.1f}s)")
     dev_set = [(c, p) for c, p in default_mutations() if c in DEVICE_CODES]
-    on_cuda = torch.device(dev).type == "cuda"
     work = tempfile.mkdtemp(prefix="chip_smoke_feedback_",
                             dir=cuda_build.BUILD_DIR)
     n_copy = [0]
 
     def run(name, n=CASES, batch=BATCH, device=dev, out=None, store=None,
             state=None, **extra):
-        """One run on a fresh copy of the store (or ``store``): returns
-        (stats, metrics snapshot, launches, digests of its files,
-        seconds, peak device bytes)."""
+        """campaign_run on a fresh copy of the store (or ``store``), its
+        files to a fresh directory (or ``out``), which it returns too."""
         n_copy[0] += 1
         store = store or copy_store(store_dir, os.path.join(
             work, f"store{n_copy[0]}"))
         out = out or os.path.join(work, f"out{n_copy[0]}")
-        os.makedirs(out, exist_ok=True)
-        stats = {}
-        opts = {"corpus_dir": store, "seed": seed3, "n": n,
-                "mutations": dev_set, "feedback": True, "_stats": stats,
-                "output": os.path.join(out, "%n"), **extra}
         if state is not None:
-            opts.update(state_path=state, checkpoint_every=1)
-        metrics.GLOBAL = metrics.Counters()
-        reset_counts()
-        if on_cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        check(run_corpus_batch(opts, batch=batch, device=device,
-                               level=2) == 0, f"(b) {name}: the run failed")
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        launches = counts()
-        peak = torch.cuda.max_memory_allocated() if on_cuda else 0
-        snap = metrics.GLOBAL.snapshot()
-        res = snap["resilience"]
-        check(not res["degraded"] and not res["events"].get("device_lost"),
-              f"{name}: degraded {res['degraded']}, events {res['events']}")
-        # one step per class a case, each launching the case kernel once
-        steps = sum(b["batches"] for b in stats["buckets"].values())
-        if torch.device(device).type == "cuda":
-            check(launches["case_rounds"] == steps >= len(stats["schedules"])
-                  and launches["round_apply"] == 0,
-                  f"{name}: launches {launches}, want the case kernel once "
-                  f"per class a case ({steps} steps)")
-        files = digests(out, batch * n)
-        return stats, snap, launches, files, secs, peak, out
+            extra.update(state_path=state, checkpoint_every=1)
+        return (*campaign_run(name, store, out, seed3, n, batch, device,
+                              **extra), out)
 
     try:
         # (b) the campaign: each run from its own copy of the store
-        runs = {}
+        runs, rates = {}, {}
         for name, n, extra in CAMPAIGN_RUNS:
             st, snap, launches, files, secs, peak, out = run(name, n=n,
                                                              **extra)
             runs[name] = files
             total = st["total"]
+            rates[name] = total / st["dt"]
             check(total == BATCH * n, f"(b) {name}: {total} samples")
             rows = sum(b["rows"] for b in st["buckets"].values())
             waste = sum(b["padded_bytes_wasted"]
@@ -1900,6 +1951,7 @@ def feedback_phase(seed, seed3, dev, card, build):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"feedback phase: {time.perf_counter() - t_phase:.1f}s")
+    return rates["arena adopt"]
 
 
 # phase 9: the FaaS serving tier (services/faas.py, ``-H``): engines,
@@ -3011,6 +3063,475 @@ def bridge_run(rng, seed3, dev, env, here) -> int:
     return launches
 
 
+# phase 11: the host tier, the coverage plane and distillation
+COV_WIDTHS = (1024, 65536)  # (a) COVERAGE_MAP_BYTES and AFL's map
+COV_COUNTS = (1, 2, 4096, 4097)  # (a) maps a call
+COV_DENSITIES = (0.0, 1 / 256, 0.5, 1.0)  # (a) share of set bits
+COV_SEEDS, COV_SEED_MAX = 64, 4096  # (b) the small store: seeds, bytes
+COV_ROWS, COV_CASES = CAMPAIGN_CPU_ROWS, CAMPAIGN_CPU_CASES  # (b)
+COV_CAMPAIGN_CASES = CAMPAIGN_SHORT  # (c) cases at phase 8's size
+# (d) python -m erlamsa_tpu_torch --backend oracle: the md5 of stdout for
+# BASELINE.json configs[0], and of the files of -w 2 -n 8 -o DIR/%n over
+# a file holding the same line (each file's name, a zero byte, its
+# bytes, in index order); tests/test_torch_host_tier.py holds both equal
+# to the JAX CLI's
+HOST_LINE = b"Hello erlamsa!\n"
+HOST_CONFIGS0_MD5 = "fc776a068a1501ce6965bd816b1df1f6"
+HOST_WORKERS_MD5 = "ca204ac51d53e811d625f4c21e15fdd5"
+TRACE_CLI_ARGS: list = []  # extra args of (d)'s traced CLI (a CPU rehearsal)
+
+# an instrumented target's connect-back stand-in: for every (case, slot)
+# one coverage frame of a map drawn from a seeded RNG (a quarter light
+# new edges, the rest are empty or repeat an earlier map), all sent
+# before the run starts; the frame is services/dist.py's
+COVERAGE_SENDER = r"""
+import json, random, socket, struct, sys, zlib
+host, port, cases, batch, width, seed = sys.argv[1:7]
+cases, batch, width = int(cases), int(batch), int(width)
+rng = random.Random(int(seed))
+sent, out = [], []
+for case in range(cases):
+    for slot in range(batch):
+        kind = rng.randrange(4)
+        if kind == 0 or not sent:
+            m = bytearray(width)
+            for _ in range(rng.randrange(1, 6)):
+                m[rng.randrange(width)] = rng.randrange(1, 256)
+            blob = bytes(m)
+        elif kind == 1:
+            blob = sent[rng.randrange(len(sent))]
+        else:
+            blob = bytes(width)
+        sent.append(blob)
+        hdr = json.dumps({"op": "cov", "case": case, "slot": slot,
+                          "epoch": 0, "crc": zlib.crc32(blob)},
+                         separators=(",", ":")).encode()
+        out.append(b"\x8fEF1" + struct.pack("<II", len(hdr), len(blob))
+                   + hdr + blob)
+with socket.create_connection((host, int(port)), timeout=30) as s:
+    s.sendall(b"".join(out))
+"""
+
+
+def cov_maps(rng, n, width, density):
+    """uint8[n, width]: each bit set with probability ``density``."""
+    if density == 0.0:
+        return np.zeros((n, width), np.uint8)
+    if density == 1.0:
+        return np.full((n, width), 0xFF, np.uint8)
+    if density == 0.5:
+        return np.frombuffer(rng.bytes(n * width), np.uint8).reshape(
+            n, width).copy()
+    bits = np.zeros(n * width * 8, bool)
+    bits[rng.integers(0, bits.size, int(bits.size * density))] = True
+    return np.packbits(bits).reshape(n, width)
+
+
+def cov_cases(seed):
+    """(width, density, maps[max count], acc) of phase 11 (a), from the
+    seed alone: the twin process and the card make the same maps."""
+    rng = np.random.default_rng(seed + 12)
+    for width in COV_WIDTHS:
+        for density in COV_DENSITIES:
+            maps = cov_maps(rng, max(COV_COUNTS), width, density)
+            acc = cov_maps(rng, 1, width, density / 2)[0]
+            yield width, density, maps, acc
+
+
+def cov_twins(out, seed) -> int:
+    """``--cov-twins FILE``: the numpy twins of ops/coverage.py over phase
+    11 (a)'s maps, in a process of its own started with the script (the
+    largest, 4097 x 64 KB, take seconds each on the host)."""
+    from erlamsa_tpu_torch.ops import coverage as cov
+
+    res, t = {}, time.perf_counter()
+    for width, density, maps, acc in cov_cases(seed):
+        for n in COV_COUNTS:
+            k = f"{width}-{density}-{n}"
+            res[k + "-pop"] = cov.popcount_np(maps[:n])
+            res[k + "-fold"] = cov.fold_maps_np(acc, maps[:n])
+            res[k + "-gains"], res[k + "-acc"] = cov.batch_gains_np(
+                acc, maps[:n])
+    res["seconds"] = np.float64(time.perf_counter() - t)
+    np.savez(out + ".tmp.npz", **res)
+    os.replace(out + ".tmp.npz", out)
+    return 0
+
+
+def cov_ops_vs_twins(seed, dev, twins):
+    """Phase 11 (a): popcount, fold_maps and batch_gains on the card ==
+    their numpy twins (the --cov-twins process's), tolerance 0; the
+    fold's device time at 4096 x 1024 B from CUDA events."""
+    import torch
+
+    from erlamsa_tpu_torch.ops import coverage as cov
+
+    proc, path = twins
+    t = time.perf_counter()
+    check(proc.wait(timeout=600) == 0, "the numpy twin process failed")
+    waited = time.perf_counter() - t
+    want = np.load(path)
+    checked, fold_ms = 0, None
+    for width, density, maps, acc in cov_cases(seed):
+        maps_d = torch.from_numpy(maps).to(dev)
+        acc_d = torch.from_numpy(acc).to(dev)
+        for n in COV_COUNTS:
+            k = f"{width}-{density}-{n}"
+            pop = cov.popcount(maps_d[:n])
+            fold = cov.fold_maps(acc_d, maps_d[:n])
+            gains, acc2 = cov.batch_gains(acc_d, maps_d[:n])
+            check(pop.dtype == gains.dtype == torch.int32
+                  and fold.dtype == acc2.dtype == torch.uint8
+                  and pop.device.type == fold.device.type
+                  == gains.device.type == dev.type,
+                  f"(a) {k}: dtypes {pop.dtype} {fold.dtype} {gains.dtype}")
+            for name, got in (("pop", pop), ("fold", fold),
+                              ("gains", gains), ("acc", acc2)):
+                check(np.array_equal(got.cpu().numpy(), want[f"{k}-{name}"]),
+                      f"(a) {name} at {k} differs from its numpy twin")
+            checked += 1
+            if (width, n, density) == (COV_WIDTHS[0], COV_COUNTS[2], 0.5):
+                fold_ms = cuda_ms(lambda: cov.batch_gains(acc_d, maps_d[:n]),
+                                  20)
+                fold_only = cuda_ms(lambda: cov.fold_maps(acc_d, maps_d[:n]),
+                                    20)
+        del maps_d
+    print(f"coverage (a) popcount, fold_maps, batch_gains on the card == "
+          f"numpy twins, tolerance 0: {checked} cases (N "
+          f"{'/'.join(map(str, COV_COUNTS))} x widths "
+          f"{'/'.join(map(str, COV_WIDTHS))} B x densities 0, 1/256, 1/2, "
+          f"1); at {COV_COUNTS[2]} x {COV_WIDTHS[0]} B, density 1/2, "
+          f"batch_gains {fold_ms:.4f} ms, fold_maps "
+          f"{fold_only:.4f} ms device (CUDA events); the twins took "
+          f"{float(want['seconds']):.1f}s on the host in their own process "
+          f"(waited {waited:.1f}s)")
+
+
+def load_hub(frames_of, n_frames, dead=False):
+    """A CoverageHub holding ``n_frames`` frames that COVERAGE_SENDER,
+    in a process of its own, sent for ``frames_of`` = (cases, batch,
+    seed); with ``dead`` its ingest faults (monitor.ingest:*) until the
+    breaker opens."""
+    from erlamsa_tpu_torch.constants import COVERAGE_MAP_BYTES
+    from erlamsa_tpu_torch.services import chaos
+    from erlamsa_tpu_torch.services.monitors import CoverageHub
+
+    cases, batch, seed = frames_of
+    if dead:
+        chaos.configure("monitor.ingest:*", seed=seed)
+    hub = CoverageHub(port=0).start()
+    try:
+        subprocess.run([sys.executable, "-c", COVERAGE_SENDER, hub.host,
+                        str(hub.port), str(cases), str(batch),
+                        str(COVERAGE_MAP_BYTES), str(seed)],
+                       check=True, timeout=120)
+        wait_until((lambda: not hub.alive()) if dead
+                   else (lambda: hub.pending_frames() == n_frames),
+                   "the coverage frames")
+    finally:
+        chaos.configure(None)
+    return hub
+
+
+def coverage_run(name, store, work, seed3, batch, n, device, hub=None,
+                 **extra):
+    """campaign_run, arena async --adopt (with ``hub``, --coverage and
+    the hub's frames): returns its results, then the `# distill:` line
+    and the retired seed ids."""
+    import io
+
+    out = os.path.join(work, "out-" + name.replace(" ", "-"))
+    if hub is not None:
+        extra.update(coverage=True, coverage_hub=hub)
+    err, real = io.StringIO(), sys.stderr
+    sys.stderr = err
+    try:
+        got = campaign_run(name, store, out, seed3, n, batch, device,
+                           pipeline="async", layout="arena", adopt=True,
+                           **extra)
+    except BaseException:
+        real.write(err.getvalue()[-2000:])
+        raise
+    finally:
+        sys.stderr = real
+    said = [ln for ln in err.getvalue().splitlines()
+            if ln.startswith("# distill:")]
+    rdir = os.path.join(store, "retired")
+    retired = sorted(os.listdir(rdir)) if os.path.isdir(rdir) else []
+    shutil.rmtree(out)
+    return (*got, said, retired)
+
+
+def coverage_triangle(seed, seed3, dev, work):
+    """Phase 11 (b): the coverage triangle at a small size, on the card
+    and on the CPU: the hash-novelty baseline, a coverage-gated run with
+    --adopt --distill and a run whose hub died under monitor.ingest:*."""
+    from erlamsa_tpu_torch.corpus.store import CorpusStore
+
+    rng = np.random.default_rng(seed + 13)
+    sizes = np.exp(rng.uniform(np.log(CAMPAIGN_MIN), np.log(COV_SEED_MAX),
+                               COV_SEEDS))
+    small = os.path.join(work, "small")
+    store = CorpusStore(small)
+    for i, n in enumerate(sizes):
+        store.add(seed_bytes(rng, i, int(n)), origin="import")
+    frames = (COV_CASES, COV_ROWS, seed + 14)
+    got, secs = {}, {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        t = time.perf_counter()
+        runs = {}
+        runs["base"] = coverage_run(f"(b) base {key}", copy_store(
+            small, os.path.join(work, f"b-base-{key}")), work, seed3,
+            COV_ROWS, COV_CASES, d)
+        hub = load_hub(frames, COV_CASES * COV_ROWS)
+        try:
+            runs["cov"] = coverage_run(f"(b) coverage {key}", copy_store(
+                small, os.path.join(work, f"b-cov-{key}")), work, seed3,
+                COV_ROWS, COV_CASES, d, hub=hub, distill=True)
+        finally:
+            hub.stop()
+            hub.join(timeout=10)
+        hub = load_hub(frames, COV_CASES * COV_ROWS, dead=True)
+        try:
+            runs["dead"] = coverage_run(f"(b) dead hub {key}", copy_store(
+                small, os.path.join(work, f"b-dead-{key}")), work, seed3,
+                COV_ROWS, COV_CASES, d, hub=hub)
+        finally:
+            hub.stop()
+            hub.join(timeout=10)
+        got[key], secs[key] = runs, time.perf_counter() - t
+        base, cov, dead = runs["base"], runs["cov"], runs["dead"]
+        check(dead[3] == base[3] and dead[0]["offspring"]
+              == base[0]["offspring"],
+              f"(b) {key}: the dead hub's run differs from the baseline")
+        check(dead[0]["coverage"]["degraded"]
+              and dead[1]["resilience"]["events"].get("coverage_lost") == 1,
+              f"(b) {key}: the dead hub did not degrade the run")
+        check(cov[3] != base[3], f"(b) {key}: coverage changed nothing")
+        check(len(cov[6]) == 1 and cov[7],
+              f"(b) {key}: distill said {cov[6]}, retired {cov[7]}")
+    card, cpu = got["card"], got["cpu"]
+    for name in ("base", "cov", "dead"):
+        check(card[name][3] == cpu[name][3],
+              f"(b) {name}: the card's files differ from the CPU's")
+    c, p = card["cov"], cpu["cov"]
+    check(c[0]["coverage"] == p[0]["coverage"]
+          and c[0]["offspring"] == p[0]["offspring"]
+          and c[6] == p[6] and c[7] == p[7],
+          f"(b) coverage stats, offspring, distill or retired ids differ: "
+          f"{c[0]['coverage']} {p[0]['coverage']} {c[6]} {p[6]}")
+    cs = c[0]["coverage"]
+    print(f"coverage (b) {COV_SEEDS} seeds of {CAMPAIGN_MIN}-{COV_SEED_MAX} "
+          f"B, {COV_ROWS} rows x {COV_CASES} cases, arena async --adopt, "
+          f"frames for every slot from a process of its own: baseline, "
+          f"--coverage --distill and a dead hub (monitor.ingest:*), card == "
+          f"CPU file for file in each; the dead hub's run == the baseline; "
+          f"coverage: {cs['maps']} maps, {cs['new_edges']} new edges, "
+          f"{c[0]['offspring']} offspring (baseline "
+          f"{card['base'][0]['offspring']}); {c[6][0][2:]}; retired "
+          f"{len(c[7])} == the CPU's; {secs['card']:.1f}s on the card, "
+          f"{secs['cpu']:.1f}s on the CPU")
+
+
+def coverage_campaign(seed, seed3, dev, card, work, store_dir, adopt_rate):
+    """Phase 11 (c): phase 8's campaign store with --coverage --distill,
+    frames for every slot: samples/s beside phase 8's arena --adopt, the
+    coverage stage, maps folded, new edges, offspring, retired seeds,
+    peak device memory; the case kernel once per class a case."""
+    n = COV_CAMPAIGN_CASES
+    hub = load_hub((n, BATCH, seed + 15), n * BATCH)
+    try:
+        st, snap, launches, _files, secs, peak, said, retired = \
+            coverage_run("(c) coverage", copy_store(
+                store_dir, os.path.join(work, "c-store")), work, seed3,
+                BATCH, n, dev, hub=hub, distill=True)
+    finally:
+        hub.stop()
+        hub.join(timeout=10)
+    cs = st["coverage"]
+    check(cs["folds"] == n and cs["maps"] == n * BATCH
+          and not cs["degraded"] and cs["hub"]["frames"] == n * BATCH,
+          f"(c) coverage stats {cs}")
+    check(st["total"] == n * BATCH, f"(c) {st['total']} samples")
+    cov_s = snap["pipeline"]["stages"].get("coverage", 0.0)
+    beside = (f"phase 8's arena --adopt {adopt_rate:.1f} samples/s this call"
+              if adopt_rate else "phase 8 not run in this call")
+    print(f"coverage (c) the campaign store ({CAMPAIGN_SEEDS} seeds), "
+          f"{BATCH} x {n} cases, level 2, arena async --adopt --coverage "
+          f"--distill: {st['total'] / st['dt']:.1f} samples/s ({beside}), "
+          f"coverage stage {cov_s / n:.4f}s a case, {cs['maps']} maps "
+          f"folded, {cs['new_edges']} new edges ({cs['edges']} in all), "
+          f"{st['offspring']} offspring adopted, {len(retired)} seeds "
+          f"retired ({said[0][2:] if said else 'no distill line'}), case "
+          f"kernel launches {launches['case_rounds']}, peak device memory "
+          f"{peak} B, {secs:.1f}s the call; card {card}")
+    return launches["case_rounds"]
+
+
+def host_cli(args, cwd, stdin=b"", env=None, timeout=600):
+    """``python -m erlamsa_tpu_torch`` in a process of its own; returns
+    (stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-m", "erlamsa_tpu_torch", *args],
+                         cwd=cwd, input=stdin, capture_output=True,
+                         timeout=timeout,
+                         env=dict(os.environ, PYTHONPATH=here, **(env or {})))
+    check(res.returncode == 0, f"(d) {args[:6]}... failed: "
+          f"{res.stderr[-2000:].decode(errors='replace')}")
+    return res.stdout, res.stderr.decode(errors="replace")
+
+
+def files_md5(d):
+    """md5 over each file's name, a zero byte and its bytes, in index
+    order (the -w digest)."""
+    import hashlib
+
+    h = hashlib.md5()
+    for f in sorted(os.listdir(d), key=int):
+        with open(os.path.join(d, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    return h.hexdigest()
+
+
+def host_tier(work):
+    """Phase 11 (d), the host tier: configs[0] and -w 2 through the CLI's
+    --backend oracle, each md5 == the JAX CLI's (held in the CPU
+    tests)."""
+    import hashlib
+
+    out, _err = host_cli(["--backend", "oracle", "-s", "1,2,3"], work,
+                         stdin=HOST_LINE)
+    check(hashlib.md5(out).hexdigest() == HOST_CONFIGS0_MD5,
+          "(d) configs[0]'s stdout differs from the JAX CLI's")
+    with open(os.path.join(work, "hello"), "wb") as f:
+        f.write(HOST_LINE)
+    os.makedirs(os.path.join(work, "w"))
+    host_cli(["--backend", "oracle", "-s", "1,2,3", "-w", "2", "-n", "8",
+              "-o", "w/%n", "hello"], work)
+    check(files_md5(os.path.join(work, "w")) == HOST_WORKERS_MD5,
+          "(d) -w 2's files differ from the JAX CLI's")
+
+
+def trace_args(corpus, seed3, work, tag):
+    """The CLI's arguments for the level-2 run_batch of phase 3's corpus
+    (its seeds the files under work/seeds), outputs under work/tag."""
+    from erlamsa_tpu_torch.ops.registry import DEVICE_CODES
+
+    seeds = os.path.join(work, "seeds")
+    os.makedirs(os.path.join(work, tag))
+    return (["-s", ",".join(map(str, seed3)), "-n", "1", "--batch",
+             str(len(corpus)), "-m", ",".join(DEVICE_CODES), "-o",
+             f"{tag}/%n", *TRACE_CLI_ARGS]
+            + [os.path.join(seeds, f) for f in sorted(os.listdir(seeds))])
+
+
+def traced_run(corpus, seed3, work, plain_md5, card):
+    """Phase 11 (d), second half: the same run with --trace FILE --xprof
+    DIR writes the same files; the trace is Chrome-trace JSON holding the
+    runner's spans, the profiler's trace names the case kernel; the span
+    totals against the device's kernel time."""
+    t = time.perf_counter()
+    _out, err = host_cli(trace_args(corpus, seed3, work, "traced")
+                         + ["--trace", "t.json", "--xprof", "xp"], work,
+                         env={"ERLAMSA_PALLAS": "2"})
+    secs = time.perf_counter() - t
+    check(files_md5(os.path.join(work, "traced")) == plain_md5,
+          "(d) --trace/--xprof changed the files")
+    with open(os.path.join(work, "t.json")) as f:
+        doc = json.load(f)
+    spans = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X":
+            n, d = spans.get(e["name"], (0, 0.0))
+            spans[e["name"]] = (n + 1, d + e["dur"] / 1e3)
+    check({"batch.dispatch", "batch.drain", "batch.write"} <= set(spans),
+          f"(d) the trace lacks the runner's spans: {sorted(spans)}")
+    profs = os.listdir(os.path.join(work, "xp"))
+    check(len(profs) == 1, f"(d) --xprof wrote {profs}")
+    with open(os.path.join(work, "xp", profs[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    case = [e for e in kern if "case_rounds_kernel" in e.get("name", "")]
+    check(case, "(d) the profiler's trace names no case kernel")
+    dev_ms = sum(e.get("dur", 0) for e in kern) / 1e3
+    case_ms = sum(e.get("dur", 0) for e in case) / 1e3
+    totals = ", ".join(f"{k} {n}x {ms:.1f} ms" for k, (n, ms)
+                       in sorted(spans.items()))
+    print(f"host (d) run_batch of phase 3's corpus, 1 case, level 2, "
+          f"--trace --xprof in its own process ({secs:.1f}s): the same "
+          f"{len(corpus)} files as without; span totals (host): {totals}; "
+          f"device kernels {len(kern)} launches {dev_ms:.1f} ms, of which "
+          f"the case kernel {len(case)}x {case_ms:.3f} ms; "
+          f"{err.count('profiler_')} profiler notes; card {card}")
+
+
+def coverage_phase(seed, seed3, dev, card, corpus, build, twins,
+                   adopt_rate=None):
+    """Phase 11: (a) ops/coverage on the card == numpy twins; (b) the
+    coverage triangle card == CPU; (c) coverage on phase 8's store
+    (``build``: the process making it, and its directory); (d) the host
+    tier and --trace/--xprof through the CLI. Returns the case kernel's
+    launches of (c)."""
+    import tempfile
+    import threading
+
+    from erlamsa_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cov_",
+                            dir=cuda_build.BUILD_DIR)
+    # (d)'s host tier and untraced run, each in a thread of its own (each
+    # drives a process), beside (a) and (b), which time only the fold
+    bg = {}
+
+    def background(key, job):
+        try:
+            t = time.perf_counter()
+            bg[key] = job()
+            bg[key + "_s"] = time.perf_counter() - t
+        except BaseException as e:  # re-raised in the phase's thread
+            bg["error"] = e
+
+    def plain():
+        host_cli(trace_args(corpus, seed3, work, "plain"), work,
+                 env={"ERLAMSA_PALLAS": "2"})
+        return files_md5(os.path.join(work, "plain"))
+
+    try:
+        os.makedirs(os.path.join(work, "seeds"))
+        for i, s in enumerate(corpus):
+            with open(os.path.join(work, "seeds", f"{i:05d}"), "wb") as f:
+                f.write(s)
+        threads = [threading.Thread(target=background, args=job,
+                                    name=f"chip_smoke-{job[0]}")
+                   for job in (("host", lambda: host_tier(work)),
+                               ("plain", plain))]
+        for th in threads:
+            th.start()
+        try:
+            cov_ops_vs_twins(seed, dev, twins)
+            coverage_triangle(seed, seed3, dev, work)
+        finally:
+            for th in threads:
+                th.join()
+        if "error" in bg:
+            raise bg["error"]
+        print(f"host (d) --backend oracle in its own process: configs[0] "
+              f"md5 {HOST_CONFIGS0_MD5} and -w 2 -n 8 -o DIR/%n md5 "
+              f"{HOST_WORKERS_MD5} == the JAX CLI's ({bg['host_s']:.1f}s); "
+              f"the untraced run {bg['plain_s']:.1f}s, both beside (a) and "
+              f"(b)")
+        check(build[0].wait(timeout=900) == 0, "the store build failed")
+        launches = coverage_campaign(seed, seed3, dev, card, work,
+                                     os.path.join(build[1], "store"),
+                                     adopt_rate)
+        traced_run(corpus, seed3, work, bg["plain"], card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"coverage phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def free_port() -> int:
     import socket
 
@@ -3262,8 +3783,13 @@ def main() -> int:
     ap.add_argument("--proxy-only", action="store_true",
                     help="build the kernels and run phase 10 alone (no "
                          "result lines)")
+    ap.add_argument("--coverage-only", action="store_true",
+                    help="build the kernels and run phase 11 alone, its "
+                         "store built meanwhile (no result lines)")
     ap.add_argument("--build-store", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 8's store, in a process
+    ap.add_argument("--cov-twins", metavar="FILE", default=None,
+                    help=argparse.SUPPRESS)  # phase 11 (a)'s numpy twins
     args = ap.parse_args()
 
     import torch
@@ -3279,6 +3805,8 @@ def main() -> int:
     sys.path.insert(0, here)
     if args.build_store:
         return build_store(args.build_store, args.seed)
+    if args.cov_twins:
+        return cov_twins(args.cov_twins, args.seed)
     t_start = time.perf_counter()
     if args.full_set_only:
         return full_set_alone(args.seed)
@@ -3295,12 +3823,23 @@ def main() -> int:
     store_proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
          "--build-store", store_root], cwd=here)
+    # and phase 11 (a)'s numpy twins in another
+    twins_path = os.path.join(store_root, "twins.npz")
+    twins_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
+         "--cov-twins", twins_path], cwd=here)
     try:
-        return phases(args, here, t_start, (store_proc, store_root))
+        if args.coverage_only:
+            return coverage_alone(args.seed, t_start,
+                                  (store_proc, store_root),
+                                  (twins_proc, twins_path))
+        return phases(args, here, t_start, (store_proc, store_root),
+                      (twins_proc, twins_path))
     finally:
-        if store_proc.poll() is None:
-            store_proc.kill()
-            store_proc.wait()
+        for proc in (store_proc, twins_proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(store_root, ignore_errors=True)
 
 
@@ -3363,9 +3902,29 @@ def proxy_alone(seed, t_start) -> int:
     return 0
 
 
-def phases(args, here, t_start, build) -> int:
-    """Phases 1-10 and the kernel timings; ``build`` is phase 8's store
-    build (process, directory)."""
+def coverage_alone(seed, t_start, build, twins) -> int:
+    """--coverage-only: build the kernels and run phase 11 alone on a
+    corpus like phase 3's; (c) waits for the store build."""
+    import torch
+
+    from erlamsa_tpu_torch.ops import cuda_build
+
+    for mod in ("jax", "erlamsa_tpu"):
+        check(mod not in sys.modules, f"{mod} was imported")
+    card = card_line()
+    print(f"card: {card}")
+    cuda_build.build_all(["round_apply", "case_rounds", "randmask"])
+    corpus = make_corpus(np.random.default_rng(seed), BATCH)
+    coverage_phase(seed, (seed, 22, 33), torch.device("cuda"), card, corpus,
+                   build, twins)
+    print(f"chip_smoke --coverage-only: {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+def phases(args, here, t_start, build, twins) -> int:
+    """Phases 1-11 and the kernel timings; ``build`` is phase 8's store
+    build (process, directory), ``twins`` phase 11 (a)'s numpy twins
+    (process, file)."""
     import torch
 
     from erlamsa_tpu_torch.ops import case_rounds as cr
@@ -3486,11 +4045,14 @@ def phases(args, here, t_start, build) -> int:
                  card, with_off=args.profile)
     reap_host_workers()
     # 8. the feedback corpus engine through run_corpus_batch
-    feedback_phase(args.seed, seed3, dev, card, build)
+    adopt_rate = feedback_phase(args.seed, seed3, dev, card, build)
     # 9. the FaaS serving tier through serve() and the CLI's -H
     serving_phase(args.seed, seed3, dev, card, profile=args.profile)
     # 10. the fuzzing proxy (-i) and the bridge server (-m xla)
     proxy_launches = proxy_phase(args.seed, seed3, dev, card)
+    # 11. the coverage plane, distillation and the host tier
+    cov_launches = coverage_phase(args.seed, seed3, dev, card, corpus,
+                                  build, twins, adopt_rate=adopt_rate)
 
     rows = []
     # round kernel on the ERLAMSA_PALLAS=1 path's first-round inputs
@@ -3544,7 +4106,8 @@ def phases(args, here, t_start, build) -> int:
     moved = 2 * B * L + B * (16 + 4 + 4 + 2 * M * 4 + 4 + 16 * 4) + M * 8
     bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("case_rounds", "erlamsa_tpu/ops/pallas_rounds.py:1180",
-                 launches[2]["case_rounds"] + proxy_launches,
+                 launches[2]["case_rounds"] + proxy_launches
+                 + cov_launches,
                  max(errs["case_rounds"], err),
                  ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
                  wrap_ms))

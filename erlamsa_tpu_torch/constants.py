@@ -47,3 +47,13 @@ CAPACITY_CLASSES = (256, 1024, 2048, 4096, 8192, 16384, 65536, 262144,
 # Distributed nodes keepalive/eviction, seconds (src/erlamsa.hrl:64-66);
 # services/cmanager.py re-exports it for the cluster modules.
 NODE_ALIVE_DELTA = 17.0
+
+# Connect-monitor default port, advertised to the SSRF/shell-inject
+# payloads (src/erlamsa_mon_connect.erl:27-29, src/erlamsa_mutations.erl:703).
+DEFAULT_CM_PORT = 51234
+
+# Edge-coverage bitmap width in bytes (8 edges a byte): 8192 edges. It
+# lives here, not in ops/coverage.py, so that the monitor plane shares it
+# without importing torch code; the hub and checkpoints still carry the
+# actual width explicitly.
+COVERAGE_MAP_BYTES = 1024

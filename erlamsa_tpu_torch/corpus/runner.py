@@ -60,9 +60,24 @@ returns EXIT_DEGRADED, not 0 (the JAX package returns 0): a CUDA error
 raised by a faulty kernel of the port's own is sticky, fails every
 probe, and would otherwise pass for a lost device.
 
-Not ported yet: the corpus fleet (shards, fleet_nodes, spmd), grammar
-seeding (gen) and coverage feedback (coverage, coverage_hub, distill);
-each raises a ValueError naming it.
+Coverage feedback (--coverage): when a CoverageHub (services/
+monitors.py) is wired in through opts["coverage_hub"], the runner takes
+the case's buffered edge bitmaps off the hub at the case boundary, and
+folds them through corpus/distill.CoverageIndex (ops/coverage.py torch
+functions on the run's device, numpy oracles while degraded). A slot
+with a map admits (energy + --adopt) only on genuinely-new edges
+(``new_cov`` events) instead of output-hash novelty; slots without a map
+keep the hash-novelty stand-in. The fold runs on the runner's or the
+drain thread, never on a hub thread, so a fixed -s stays byte-identical.
+A dead monitor plane degrades STICKILY to hash-novelty (coverage_lost
+event, coverage-degraded flag): flickering coverage would make adoption
+depend on reconnect timing. A degraded or coverage-off run is
+byte-identical to the hash-novelty baseline. --distill retires, at the
+end of the run, every seed whose edges the kept set covers
+(corpus/distill.greedy_minimize).
+
+Not ported yet: the corpus fleet (shards, fleet_nodes, spmd) and grammar
+seeding (gen); each raises a ValueError naming it.
 """
 
 from __future__ import annotations
@@ -107,10 +122,7 @@ EXIT_DEGRADED = 3
 _NOT_PORTED = (("shards", "--shards (the corpus fleet)"),
                ("fleet_nodes", "--fleet-nodes (the corpus fleet)"),
                ("spmd", "--spmd (the corpus fleet)"),
-               ("gen", "--gen (grammar seeding)"),
-               ("coverage", "--coverage (coverage feedback)"),
-               ("coverage_hub", "--coverage (coverage feedback)"),
-               ("distill", "--distill (corpus distillation)"))
+               ("gen", "--gen (grammar seeding)"))
 
 
 def _out_hash(data: bytes) -> bytes:
@@ -209,7 +221,8 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
     reference runner's: corpus_dir, seed, n, paths / recursive or corpus
     (seeds handed over in-process), mutations, output, pipeline, layout,
     arena_pages, arena_page, arena_classes, adopt, struct,
-    feedback, feedback_bus, state_path, checkpoint_every,
+    feedback, feedback_bus, coverage, coverage_hub, distill, state_path,
+    checkpoint_every,
     device_capacity_max, and _stats, a dict the run fills with its
     counts. Returns the process exit code."""
     from ..constants import CAPACITY_CLASSES
@@ -221,8 +234,9 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
     from ..ops.scheduler import init_scores
     from ..oracle.mutations import default_mutations
     from ..services.checkpoint import (load_corpus_energies,
-                                       load_seen_hashes, load_state,
-                                       quarantine_mismatch, save_state)
+                                       load_coverage_maps, load_seen_hashes,
+                                       load_state, quarantine_mismatch,
+                                       save_state)
 
     for key, what in _NOT_PORTED:
         if opts.get(key):
@@ -295,6 +309,25 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
     scores = init_scores(prng.fold_in(base, 999), batch)
     bus = opts.get("feedback_bus", fb.GLOBAL)
     consume_feedback = bool(opts.get("feedback"))
+
+    # the coverage plane: the hub buffers connect-back edge bitmaps off
+    # the wire; the runner folds them at case boundaries (never from
+    # monitor threads: the determinism contract) and gates per-slot
+    # adoption/energy on genuinely-new edges. The ledger maps (case,
+    # slot) back to the scheduled seed for the fold and for any monitor
+    # that can name the sample that provoked a signal.
+    hub = opts.get("coverage_hub")
+    coverage_on = bool(opts.get("coverage")) and hub is not None
+    distill_on = bool(opts.get("distill"))
+    ledger = fb.SampleLedger()
+    cov = None
+    cov_live = False
+    if coverage_on:
+        from .distill import CoverageIndex
+
+        cov = CoverageIndex(map_bytes=hub.map_bytes, use_device=True,
+                            device=dev)
+        cov_live = True
 
     arena = None
     trunc_cap = device_max  # truncation threshold (both layouts)
@@ -371,8 +404,17 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                       file=sys.stderr)
             else:
                 ck_seed, ck_case, ck_scores, _hs, _hsp = st
+                cov_verdict, cov_snap = "absent", None
+                if cov is not None:
+                    # kind-stamped coverage fields: "absent" (a checkpoint
+                    # without coverage) resumes with fresh empty coverage,
+                    # "mismatch" (wrong kind/version/width) means the file
+                    # belongs to a different configuration
+                    cov_verdict, cov_snap = load_coverage_maps(
+                        state_path, cov.map_bytes)
                 if (ck_seed != tuple(opts["seed"])
-                        or ck_scores.shape != (batch, NUM_DEVICE_MUTATORS)):
+                        or ck_scores.shape != (batch, NUM_DEVICE_MUTATORS)
+                        or cov_verdict == "mismatch"):
                     # the mismatched file belongs to a DIFFERENT run:
                     # park it at .bak so that run can still resume from
                     # it, instead of burying it under this run's first
@@ -394,6 +436,8 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                     # uninterrupted run's
                     seen_hashes |= load_seen_hashes(state_path,
                                                     level=level) or set()
+                    if cov_snap is not None:
+                        cov.restore(cov_snap)
                     print(f"# resumed at case {start_case} "
                           f"({len(energies or {})} seed energies restored)",
                           file=sys.stderr)
@@ -447,7 +491,8 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
     bucket_stats: dict[int, dict] = {}
     # tallies the drain worker owns in async mode (main reads after join)
     tallies = {"truncated": 0, "total": 0, "new_hashes": 0,
-               "bytes_uploaded": 0, "offspring": 0, "struct_routed": 0}
+               "bytes_uploaded": 0, "offspring": 0, "struct_routed": 0,
+               "cov_maps": 0, "cov_new_edges": 0}
     # distinct (rows, capacity, scan_len) triples the step saw — the
     # compiled-program count of the JAX package, which the arena drives
     # to one per class
@@ -638,6 +683,9 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
         t_s = time.perf_counter()
         with trace.span("corpus.schedule", case=case):
             ids = sched.schedule(case, batch)
+            # attribution ledger BEFORE launch: monitors and the
+            # coverage fold resolve (case, slot) -> seed through it
+            ledger.record(case, ids)
             samples = [store.get(sid) for sid in ids]
             plans = (None if use_arena
                      else plan_buckets(samples, device_max=device_max))
@@ -730,6 +778,53 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
         outputs are still on the device (arena layout): an adopted
         offspring then queues for DeviceArena.adopt_pending and its
         payload bytes are never uploaded again."""
+        nonlocal cov_live
+        # coverage pre-pass: pull this case's buffered bitmaps off the
+        # hub and fold them (runner/drain thread, case boundary). Hub
+        # death is STICKY — once lost, the rest of the run is pure
+        # hash-novelty, so adoption never depends on reconnect timing.
+        slot_gain: dict[int, int] = {}
+        if cov is not None and cov_live:
+            if not hub.alive():
+                cov_live = False
+                logger.log("warning", "corpus: coverage hub lost at case "
+                           "%d — degrading to hash-novelty", case)
+                metrics.GLOBAL.record_event("coverage_lost")
+                metrics.GLOBAL.set_coverage_degraded(True)
+            else:
+                frames = hub.take(case)
+                covered = [s for s in sorted(frames) if s < batch]
+                pairs = [(ledger.resolve(case, s) or ids[s], frames[s])
+                         for s in covered]
+                t_f = time.perf_counter()
+                try:
+                    with trace.span("coverage.fold", case=case,
+                                    maps=len(pairs)):
+                        gains = cov.fold_case(pairs)
+                except OSError as e:
+                    # injected coverage.fold fault: the whole case is
+                    # treated as uncovered — observable, never diverging
+                    # from the hash-novelty baseline
+                    logger.log("warning", "corpus: coverage fold failed "
+                               "at case %d (%s) — case uncovered", case, e)
+                    metrics.GLOBAL.record_coverage_frame("faulted")
+                else:
+                    if covered:
+                        slot_gain = dict(zip(covered, gains))
+                        new_edges = int(sum(gains))
+                        metrics.GLOBAL.record_coverage_fold(
+                            len(pairs), new_edges, cov.edges())
+                        tallies["cov_maps"] += len(pairs)
+                        tallies["cov_new_edges"] += new_edges
+                finally:
+                    metrics.GLOBAL.record_stage(
+                        "coverage", time.perf_counter() - t_f)
+
+        # novelty feedback: a slot WITH a coverage map admits on
+        # genuinely-new edges (new_cov energy); a slot without one keeps
+        # the hash-novelty stand-in byte for byte. seen_hashes is still
+        # recorded for covered slots so a later degradation cannot
+        # re-count their outputs as novel.
         t_h = time.perf_counter()
         case_bytes = 0
         case_adopted = 0
@@ -738,11 +833,18 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                 payload = results.get(slot, b"")
                 case_bytes += len(payload)
                 h = _out_hash(payload)
-                admit = h not in seen_hashes
-                if admit:
+                novel_hash = h not in seen_hashes
+                if novel_hash:
                     seen_hashes.add(h)
                     tallies["new_hashes"] += 1
-                    store.apply_event(fb.Event("new_hash", ids[slot]))
+                if slot in slot_gain:
+                    admit = slot_gain[slot] > 0
+                    if admit:
+                        store.apply_event(fb.Event("new_cov", ids[slot]))
+                else:
+                    admit = novel_hash
+                    if admit:
+                        store.apply_event(fb.Event("new_hash", ids[slot]))
                 if admit and adopt_on and payload \
                         and case_adopted < ADOPT_CAP:
                     # the store decides (dedup by content hash);
@@ -800,7 +902,9 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
             save_state(state_path, opts["seed"], case + 1,
                        _host_scores(ckpt_scores),
                        corpus_energies=store.energies(), level=level,
-                       seen_hashes=seen_hashes)
+                       seen_hashes=seen_hashes,
+                       coverage=(cov.snapshot()
+                                 if cov is not None else None))
             store.save()
             if drain is not None:
                 drain.mark_done(case)
@@ -980,6 +1084,10 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                                case, e, redo_from)
                     metrics.GLOBAL.record_event("device_lost")
                     metrics.GLOBAL.set_degraded(True)
+                    if cov is not None:
+                        # fold on the numpy oracle while the device is
+                        # out (bit-identical by the parity tests)
+                        cov.use_device = False
                     scores = _scores_to_host(scores)
                     case = redo_from
                     degraded_from = case
@@ -998,6 +1106,8 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                                    case)
                         metrics.GLOBAL.record_event("device_recovered")
                         metrics.GLOBAL.set_degraded(False)
+                        if cov is not None:
+                            cov.use_device = True
                         device_mode = True
                         if use_arena:
                             # the old arena tensor died with the device:
@@ -1012,6 +1122,7 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                         continue
                 t_s = time.perf_counter()
                 ids = sched.schedule(case, batch)
+                ledger.record(case, ids)
                 metrics.GLOBAL.record_stage("schedule",
                                             time.perf_counter() - t_s)
                 if stats is not None:
@@ -1027,6 +1138,22 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
         # stages) must see their own routing split
         _registry.set_struct_kernels(_struct_flag_before)
 
+    # --distill: greedy set-cover over the per-seed coverage tensor —
+    # retire every seed whose edge set is provably subsumed by the kept
+    # set (afl-cmin analogue; corpus/distill.py pins the determinism and
+    # the never-retire-uncovered rule)
+    distilled = 0
+    if cov is not None and distill_on:
+        from .distill import greedy_minimize
+
+        snap = cov.snapshot()
+        keep, retired = greedy_minimize(snap["ids"], snap["maps"])
+        distilled = store.retire_many(retired)
+        if distilled:
+            metrics.GLOBAL.record_distilled(distilled)
+        print(f"# distill: {len(keep)} covering seeds keep "
+              f"{cov.edges()} edges, {distilled} subsumed seeds retired",
+              file=sys.stderr)
     store.save()
     dt = time.perf_counter() - t0
     metrics.GLOBAL.record_pipeline_wall(dt)
@@ -1052,6 +1179,14 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                      store_stats=store.stats())
         if arena is not None:
             stats["arena"] = arena.stats()
+        if cov is not None:
+            stats["coverage"] = {
+                "edges": cov.edges(), "folds": cov.folds,
+                "maps": tallies["cov_maps"],
+                "new_edges": tallies["cov_new_edges"],
+                "degraded": not cov_live, "distilled": distilled,
+                "hub": hub.stats(),
+            }
     logger.log("info", "corpus backend (%s pipeline, %s layout): %d "
                "samples in %.2fs (%.0f samples/s), %d novel output hashes",
                pipeline, layout, total, dt, total / max(dt, 1e-9),

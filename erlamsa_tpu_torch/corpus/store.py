@@ -366,22 +366,37 @@ class CorpusStore:
         still sticks; the stranded file is adopted back by a later fsck,
         which is the safe direction — a retired seed resurfacing costs
         schedule weight, a lost seed costs coverage."""
+        return self.retire_many([seed_id]) == 1
+
+    def retire_many(self, seed_ids) -> int:
+        """retire() for each id in order, with one corpus.json save for
+        all of them (one save per seed rewrites the whole index each
+        time: seconds for a thousand seeds of a large store). Returns
+        how many ids were known and retired. A crash before the save
+        leaves moved files whose entries remain, which fsck drops as
+        missing: the outcome of a crash after some of the one-by-one
+        saves."""
+        done = 0
         with self._lock:
-            m = self._meta.pop(seed_id, None)
-            if m is None:
-                return False
-            self._cache.pop(seed_id, None)
-            rdir = os.path.join(self.root, "retired")
-            try:
-                chaos.fault_point("store.seed")
-                os.makedirs(rdir, exist_ok=True)
-                os.replace(os.path.join(self.seeds_dir, seed_id),
-                           os.path.join(rdir, seed_id))
-            except OSError as e:
-                logger.log("warning", "corpus: retiring %s: move failed "
-                           "(%s); file left for fsck", seed_id, e)
-            self._save_locked()
-        return True
+            for seed_id in seed_ids:
+                m = self._meta.pop(seed_id, None)
+                if m is None:
+                    continue
+                done += 1
+                self._cache.pop(seed_id, None)
+                rdir = os.path.join(self.root, "retired")
+                try:
+                    chaos.fault_point("store.seed")
+                    os.makedirs(rdir, exist_ok=True)
+                    os.replace(os.path.join(self.seeds_dir, seed_id),
+                               os.path.join(rdir, seed_id))
+                except OSError as e:
+                    logger.log("warning", "corpus: retiring %s: move "
+                               "failed (%s); file left for fsck", seed_id,
+                               e)
+            if done:
+                self._save_locked()
+        return done
 
     def record_scheduled(self, counts: dict[str, int]):
         """hits += n per seed: the scheduler's energy-spend record that

@@ -12,8 +12,14 @@ corpus stage pins. Enabled, completed spans append one small dict to a
 bounded in-memory event list exported as Chrome trace events
 (``{"traceEvents": [...]}``), loadable in Perfetto / chrome://tracing,
 and are mirrored into the flight recorder ring (obs/flight.py) so a
-crash dump carries the seconds of spans before the incident. The module
-is stdlib-pure.
+crash dump carries the seconds of spans before the incident.
+
+``--xprof DIR`` additionally runs ``torch.profiler`` (CPU activity, and
+CUDA activity when the run is on the card) from configure() to export(),
+enters every span as a ``record_function`` so host spans and device
+kernels line up on one timeline, and writes the profiler's Chrome trace
+into DIR at export. torch is imported lazily and only on that path —
+this module stays stdlib-pure otherwise.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ class Span:
     replay paths."""
 
     __slots__ = ("tracer", "name", "attrs", "span_id", "parent_id",
-                 "_t0", "_remote_parent")
+                 "_t0", "_xprof_ctx", "_remote_parent")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict,
                  remote_parent: int = 0):
@@ -69,6 +75,7 @@ class Span:
         self.span_id = 0
         self.parent_id = 0
         self._t0 = 0.0
+        self._xprof_ctx = None
         self._remote_parent = remote_parent
 
     def annotate(self, **attrs):
@@ -86,12 +93,20 @@ class Span:
         self.parent_id = (stack[-1].span_id if stack
                           else self._remote_parent)
         stack.append(self)
+        if tr._prof is not None:
+            import torch
+
+            self._xprof_ctx = torch.profiler.record_function(self.name)
+            self._xprof_ctx.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         tr = self.tracer
+        if self._xprof_ctx is not None:
+            self._xprof_ctx.__exit__(*exc)
+            self._xprof_ctx = None
         stack = tr._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -116,18 +131,27 @@ class Tracer:
         self._exported_upto = -1
         self._trace_id = ""
         self._nodes: dict[int, str] = {}
+        self._xprof: str | None = None
+        self._prof = None  # the running torch.profiler.profile
 
     # -- configuration ----------------------------------------------------
 
-    def configure(self, path: str | None = None,
-                  trace_id: str | None = None):
-        """Arm tracing (``--trace FILE``); export() writes the Chrome
-        trace there. Calling with no path disables tracing again. `trace_id` names the campaign-wide trace every
+    def configure(self, path: str | None = None, xprof: str | None = None,
+                  trace_id: str | None = None, xprof_cuda: bool = False):
+        """Arm tracing (``--trace FILE`` / ``--xprof DIR``). Either
+        argument alone enables span collection; export() writes the
+        Chrome trace when a path is set, and the profiler's trace into
+        the xprof directory. `xprof_cuda` adds the profiler's CUDA
+        activity (a run on the card; a host run asks for none, so the
+        profiler never touches CUDA). Calling with neither disables
+        tracing again. `trace_id` names the campaign-wide trace every
         propagated context carries; defaults to a pid-derived id (never
         wall clock or entropy — same no-wallclock contract as span ids)."""
+        self._export_xprof()  # a profiler still running from before
         with self._lock:
             self._path = path
-            self._enabled = bool(path)
+            self._xprof = xprof
+            self._enabled = bool(path or xprof)
             self._events = []
             self._dropped = 0
             self._t_base = time.perf_counter()
@@ -135,6 +159,15 @@ class Tracer:
             self._trace_id = ((trace_id or f"t{os.getpid():08x}")
                               if self._enabled else "")
             self._nodes = {}
+        if xprof:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if xprof_cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            os.makedirs(xprof, exist_ok=True)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
         if self._enabled and not self._atexit_installed:
             import atexit
 
@@ -253,7 +286,9 @@ class Tracer:
         """Write the Chrome trace JSON to `path` (default: the configured
         ``--trace`` file). Idempotent — safe to call from finally blocks
         AND atexit; returns the path written, or None when there is
-        nowhere to write."""
+        nowhere to write. The profiler of ``--xprof`` stops here and its
+        trace lands in the xprof directory, with or without a path."""
+        self._export_xprof()
         path = path or self._path
         if not path:
             return None
@@ -306,6 +341,24 @@ class Tracer:
                 self._exported_upto = len(events)
         return path
 
+    def _export_xprof(self) -> None:
+        """Stop the ``--xprof`` profiler and write its Chrome trace into
+        the xprof directory (``torch_trace.<pid>.json``); once."""
+        with self._lock:
+            prof, self._prof = self._prof, None
+        if prof is None:
+            return
+        out = os.path.join(self._xprof, f"torch_trace.{os.getpid()}.json")
+        try:
+            prof.stop()
+            prof.export_chrome_trace(out)
+        except (OSError, RuntimeError) as e:
+            # like the trace file: an export never takes the process down
+            from ..services import logger
+
+            logger.log("warning", "obs: profiler export to %s failed: %s",
+                       out, e)
+
     def stats(self) -> dict:
         with self._lock:
             return {"enabled": self._enabled, "events": len(self._events),
@@ -320,8 +373,10 @@ GLOBAL = Tracer()
 flight.set_context_source(lambda: GLOBAL.trace_id())
 
 
-def configure(path: str | None = None, trace_id: str | None = None):
-    GLOBAL.configure(path=path, trace_id=trace_id)
+def configure(path: str | None = None, xprof: str | None = None,
+              trace_id: str | None = None, xprof_cuda: bool = False):
+    GLOBAL.configure(path=path, xprof=xprof, trace_id=trace_id,
+                     xprof_cuda=xprof_cuda)
 
 
 def span(name: str, **attrs):

@@ -32,6 +32,12 @@ split of case k+1 saw and those with case k's outcomes folded in. A
 resumed run feeds the first into the dispatcher before its first launch
 and swaps the second in right after it, so it routes and writes exactly
 what the uninterrupted run did. -n is the total number of cases.
+
+With --trace (obs/trace.py) each class step's launch is a
+``batch.dispatch`` span, the copy-out of a case's device rows
+``batch.drain``, the wait on its host rows ``batch.host_wait`` and its
+writes ``batch.write``: the host's share of a case beside the device's
+kernels under --xprof. Spans change no byte.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 
 from .. import resolve_device
 from ..constants import CAPACITY_CLASSES, DEFAULT_MAX_RUNNING_TIME
+from ..obs import trace
 from ..ops import payloads, prng, registry
 from ..ops import structure as stm
 from ..ops.buffers import capacity_for, pack, scan_bound
@@ -153,9 +160,12 @@ class DevicePath:
         scores, meta) per class]."""
         outs = []
         for idx, packed, scan_len in self.panels.values():
-            data, lens, cls_scores, meta = self.step(
-                self.base, case, idx, packed.data, packed.lens,
-                self.scores[idx], scan_len=scan_len)
+            with trace.span("batch.dispatch", case=case,
+                            capacity=int(packed.data.shape[1]),
+                            rows=len(idx)):
+                data, lens, cls_scores, meta = self.step(
+                    self.base, case, idx, packed.data, packed.lens,
+                    self.scores[idx], scan_len=scan_len)
             self.scores[idx] = cls_scores
             outs.append((idx, data, lens, cls_scores, meta))
         return outs
@@ -417,10 +427,11 @@ def _hybrid_cases(corpus, seed, mutations, n_cases, device, level, budget,
          scores_after) = pend
         t = time.perf_counter()
         results: dict[int, bytes] = {}
-        for idx, data, lens, _scores, _meta in outs:
-            data_np, lens_np = data.cpu().numpy(), lens.cpu().numpy()
-            for j, i in enumerate(idx.tolist()):
-                results[i] = data_np[j, : lens_np[j]].tobytes()
+        with trace.span("batch.drain", case=case):
+            for idx, data, lens, _scores, _meta in outs:
+                data_np, lens_np = data.cpu().numpy(), lens.cpu().numpy()
+                for j, i in enumerate(idx.tolist()):
+                    results[i] = data_np[j, : lens_np[j]].tobytes()
         # per-case host-tail ledger: {code: samples the host served}
         routed_codes: dict[str, int] = {}
         if struct_rows and struct == "device":
@@ -450,7 +461,8 @@ def _hybrid_cases(corpus, seed, mutations, n_cases, device, level, budget,
         # resumed run's split(case+1) routes identically to this one
         host_pre = dict(hybrid.host_scores)
         if host_fut is not None:
-            host_results, host_metas = host_fut.result()
+            with trace.span("batch.host_wait", case=case):
+                host_results, host_metas = host_fut.result()
             results.update(host_results)
             hybrid.apply_outcomes(host_metas)
             st["abandoned"] += len(host_idx) - len(host_results)
@@ -559,8 +571,9 @@ def run_batch(opts: dict, batch: int = 1024, device=None, level=None) -> int:
             # the resume check: a finished run binds no socket
             writer = out.string_outputs(opts.get("output", "-"))[0] or (
                 lambda _i, payload, _meta: sys.stdout.buffer.write(payload))
-        for i, payload in enumerate(results):
-            writer(case * batch + i, payload, [])
+        with trace.span("batch.write", case=case):
+            for i, payload in enumerate(results):
+                writer(case * batch + i, payload, [])
         total += batch
     sys.stdout.flush()
     if opts.get("state_path") and stats["start_case"] >= n_cases:

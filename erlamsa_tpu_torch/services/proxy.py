@@ -54,6 +54,7 @@ from .supervisor import supervise
 ACCEPT_POLL_S = 0.5  # the tcp accept loop looks at the stop event this often
 STOP_JOIN_S = 3.0  # stop() waits this long for a non-blocking serve loop
 READY_WAIT_S = 5.0  # start(block=False) waits this long for the listener
+CONNECT_TIMEOUT_S = 10.0  # bounds an upstream connect and a CONNECT head read
 
 
 def parse_proxy_spec(spec: str):
@@ -300,10 +301,16 @@ class FuzzProxy:
     def _handle_tcp(self, client: socket.socket):
         server = None
         try:
-            server = socket.create_connection((self.rhost, self.rport), timeout=10)
+            server = socket.create_connection((self.rhost, self.rport),
+                                              timeout=CONNECT_TIMEOUT_S)
             if self.proto == "tls":
                 client = self._tls_wrap_client(client)
                 server = self._tls_wrap_server(server)
+            # the timeout bounds the set-up only: the JAX package leaves it
+            # on the upstream socket, so an upstream silent for 10 s (a
+            # keep-alive connection between requests, packets fuzzed to
+            # nothing) ends the proxied connection
+            server.settimeout(None)
         except (OSError, RuntimeError) as e:
             logger.log("error", "proxy connection setup failed (%s:%d): %s",
                        self.rhost, self.rport, e)
@@ -322,7 +329,7 @@ class FuzzProxy:
         upstream from CONNECT host:port or the request's Host header."""
         server = None
         try:
-            client.settimeout(10)
+            client.settimeout(CONNECT_TIMEOUT_S)
             head = b""
             while b"\r\n\r\n" not in head and len(head) < 65536:
                 chunk = client.recv(8192)
@@ -335,7 +342,7 @@ class FuzzProxy:
                 target = first.split()[1].decode()
                 host, _, port = target.rpartition(":")
                 server = socket.create_connection(
-                    (host or target, int(port or 443)), timeout=10
+                    (host or target, int(port or 443)), timeout=CONNECT_TIMEOUT_S
                 )
                 client.sendall(b"HTTP/1.1 200 Connection Established\r\n\r\n")
                 leftover = head.split(b"\r\n\r\n", 1)[1]
@@ -350,9 +357,12 @@ class FuzzProxy:
                     return
                 hostport = host_line.split(b":", 1)[1].strip().decode()
                 host, _, port = hostport.partition(":")
-                server = socket.create_connection((host, int(port or 80)), timeout=10)
+                server = socket.create_connection(
+                    (host, int(port or 80)), timeout=CONNECT_TIMEOUT_S
+                )
                 leftover = head  # forward the full request
             client.settimeout(None)
+            server.settimeout(None)  # set-up only, as in _handle_tcp
             conn_state: dict = {}
             if leftover:
                 out = self._fuzz_maybe(leftover, self.prob_cs, 1, "c->s", conn_state)

@@ -229,3 +229,133 @@ def test_resume_keeps_seen_hashes(tmp_path, env):
             assert files != straight  # the reference's fault, kept there
         else:
             assert files == straight
+
+
+# --- coverage feedback and distillation (--coverage --distill) -----------
+
+#: connect-back frames of the coverage triangle, one per (case, slot):
+#: a few slots light new edges, the rest send an empty map or repeat an
+#: earlier one (a stand-in for an instrumented target)
+def _coverage_frames(map_bytes, cases=CASES, batch=BATCH, seed=7):
+    rng = np.random.default_rng(seed)
+    sent, frames = [], []
+    for case in range(cases):
+        for slot in range(batch):
+            kind = rng.integers(0, 4)
+            if kind == 0 or not sent:
+                m = np.zeros(map_bytes, np.uint8)
+                lit = rng.integers(0, map_bytes, rng.integers(1, 6))
+                m[lit] = rng.integers(1, 256, lit.size, dtype=np.uint8)
+                blob = m.tobytes()
+            elif kind == 1:
+                blob = sent[rng.integers(0, len(sent))]
+            else:
+                blob = bytes(map_bytes)
+            sent.append(blob)
+            frames.append((case, slot, blob))
+    return frames
+
+
+def _loaded_hub(pkg, frames, chaos_spec=None):
+    """``pkg``'s CoverageHub with every frame of ``frames`` buffered (or,
+    under ``chaos_spec``, the hub dead of its ingest faults), sent over
+    the loopback with ``pkg``'s frame codec."""
+    import socket
+    import time
+    import zlib
+
+    if pkg == "jax":
+        from erlamsa_tpu.services.dist import _pack_frame
+        from erlamsa_tpu.services.monitors import CoverageHub
+    else:
+        from erlamsa_tpu_torch.services.dist import _pack_frame
+        from erlamsa_tpu_torch.services.monitors import CoverageHub
+    chaos = Jchaos if pkg == "jax" else Tchaos
+    chaos.configure(chaos_spec, seed=13)
+    hub = CoverageHub(port=0).start()
+    try:
+        with socket.create_connection((hub.host, hub.port), timeout=5) as s:
+            for case, slot, blob in frames:
+                s.sendall(_pack_frame({"op": "cov", "case": case,
+                                       "slot": slot, "epoch": 0,
+                                       "crc": zlib.crc32(blob)}, blob))
+        t0 = time.monotonic()
+        while (hub.alive() if chaos_spec
+               else hub.pending_frames() < len(frames)):
+            assert time.monotonic() - t0 < 15, hub.stats()
+            time.sleep(0.01)
+    finally:
+        chaos.configure(None)
+    return hub
+
+
+def _retired(root, tag):
+    d = os.path.join(root, tag + "-store", "retired")
+    return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+
+def test_coverage_distill_equals_jax(tmp_path, reference, capfd):
+    """--coverage --distill --adopt with the same pre-buffered frames: the
+    port's runner, in both pipelines and both layouts, writes the JAX
+    runner's files, stats["coverage"] (the hub's frame counts included),
+    offspring and `# distill:` line, and retires the same seeds; the
+    gate changed the campaign."""
+    root = str(tmp_path)
+    _st_ref, files_ref, _en = reference
+    frames = _coverage_frames(1024)
+    got = {}
+    for pkg, pipeline, layout in (("jax", "async", "buckets"),
+                                  ("port", "async", "buckets"),
+                                  ("port", "sync", "buckets"),
+                                  ("port", "async", "arena"),
+                                  ("port", "sync", "arena")):
+        tag = f"{pkg}-{pipeline}-{layout}"
+        hub = _loaded_hub(pkg, frames)
+        try:
+            capfd.readouterr()
+            st, files, en = run(pkg, root, tag, adopt=True, coverage=True,
+                                coverage_hub=hub, distill=True,
+                                pipeline=pipeline, layout=layout)
+            said = [ln for ln in capfd.readouterr().err.splitlines()
+                    if ln.startswith("# distill:")]
+        finally:
+            hub.stop()
+            hub.join(timeout=10)
+        got[tag] = (st, files, en, said, _retired(root, tag))
+    st_j, files_j, en_j, said_j, ret_j = got.pop("jax-async-buckets")
+    for tag, (st, files, en, said, ret) in got.items():
+        assert files == files_j and en == en_j, tag
+        assert st["coverage"] == st_j["coverage"], tag
+        assert st["offspring"] == st_j["offspring"], tag
+        assert st["schedules"] == st_j["schedules"], tag
+        assert said == said_j and len(said) == 1, tag
+        assert ret == ret_j and ret, tag
+    cov = st_j["coverage"]
+    assert cov["folds"] == CASES and cov["maps"] == CASES * BATCH
+    assert cov["new_edges"] > 0 and not cov["degraded"]
+    assert cov["distilled"] == len(ret_j)
+    assert files_j != files_ref
+
+
+def test_coverage_hub_death_equals_hash_novelty(tmp_path, env):
+    """A hub killed by monitor.ingest faults before the run: the port's
+    --coverage run degrades (stickily) and writes the hash-novelty
+    baseline's files and energies; a --coverage run with no hub wired in
+    is the baseline too."""
+    root = str(tmp_path)
+    st_a, files_a, en_a = run("port", root, "base", adopt=True)
+    hub = _loaded_hub("port", _coverage_frames(1024)[:6],
+                      chaos_spec="monitor.ingest:*")
+    try:
+        assert not hub.alive() and hub.stats()["faulted"] >= 4
+        st_c, files_c, en_c = run("port", root, "deg", adopt=True,
+                                  coverage=True, coverage_hub=hub)
+    finally:
+        hub.stop()
+        hub.join(timeout=10)
+    assert files_c == files_a and en_c == en_a
+    assert st_c["offspring"] == st_a["offspring"]
+    assert st_c["coverage"]["degraded"] and st_c["coverage"]["folds"] == 0
+    assert Tm.GLOBAL.snapshot()["resilience"]["events"]["coverage_lost"] == 1
+    _st, files_n, _en = run("port", root, "nohub", adopt=True, coverage=True)
+    assert files_n == files_a

@@ -432,6 +432,53 @@ def test_connect_tunnel():
     assert forwarded == log[0][2] != log[0][1]
 
 
+@pytest.mark.parametrize("proto", ["tcp", "connect"])
+def test_idle_upstream_keeps_the_connection(proto, monkeypatch):
+    """The connect timeout bounds the set-up only: a connection whose
+    upstream stays silent past it still carries the next exchange (the
+    JAX package's upstream socket keeps the timeout and its s->c pump
+    ends the connection)."""
+    monkeypatch.setattr(Tproxy, "CONNECT_TIMEOUT_S", 0.2)
+    up = socket.socket()
+    up.bind(("127.0.0.1", 0))
+    up.listen(1)
+    up.settimeout(WAIT)
+
+    def echo():
+        try:
+            conn, _ = up.accept()
+            with conn:
+                while data := conn.recv(65536):
+                    conn.sendall(data)
+        except OSError:
+            pass
+
+    t = threading.Thread(target=echo, daemon=True)
+    t.start()
+    lport = free_port()
+    uport = up.getsockname()[1]
+    spec = (f"connect://{lport}::" if proto == "connect"
+            else f"tcp://{lport}:127.0.0.1:{uport}")
+    proxy = Tproxy.FuzzProxy(spec, "0.0,0.0", dict(OPTS), backend="oracle")
+    try:
+        proxy.start(block=False)
+        with socket.create_connection(("127.0.0.1", lport),
+                                      timeout=WAIT) as c:
+            if proto == "connect":
+                c.sendall(b"CONNECT 127.0.0.1:%d HTTP/1.1\r\n\r\n" % uport)
+                assert b" 200 " in c.recv(1024)
+            back = []
+            for i in range(2):
+                c.sendall(b"exchange %d" % i)
+                back.append(c.recv(65536))
+                time.sleep(0.6)  # the upstream is silent past the timeout
+    finally:
+        proxy.stop()
+        up.close()
+        t.join(WAIT)
+    assert back == [b"exchange 0", b"exchange 1"]
+
+
 def test_http2_only_data_changes():
     from erlamsa_tpu_torch.models.hpack import HpackContext
 
