@@ -49,11 +49,12 @@ Phases, each fatal on failure:
              abandoned counts, host-wait against device seconds; the case
              kernel must launch once per case at level 2;
   5. mixed   (run before phase 4, beside phase 8's store build) a
-             128-row corpus (one row each of XML, JSON, zip, gzip,
+             64-row corpus (one row each of XML, JSON, zip, gzip,
              base64 and a URI, the rest small seeds of the three shapes)
              through the full set for 2 cases at level 2 and 1 at level
              0 (3 rows x 256 before phase 8 came, 2 x 256 before phase 9,
-             2 cases at level 0 before phase 11) on the card and on the
+             2 cases at level 0 before phase 11, 128 rows before phase
+             12) on the card and on the
              CPU: every row's bytes equal, at least one row host-routed,
              none abandoned;
   6. state   resumable runs and output sinks through services/batchrunner.
@@ -63,7 +64,7 @@ Phases, each fatal on failure:
              1 resumed with a checkpoint after every case (4 and 2 + 2
              before phase 9): every file equal, the case kernel launched
              twice in each, save_state's seconds per case; (b) phase 5's
-             128-row corpus, the full set,
+             64-row corpus, the full set,
              level 2 (2 and 0 before phase 10 came), interrupted after
              case 1 and resumed on the
              card: the files equal phase 5's CPU run, rows host-routed in
@@ -87,7 +88,7 @@ Phases, each fatal on failure:
              CPU port;
              samples/s, host-routed share, host wait against device
              seconds, struct rows and struct step time (CUDA events) per
-             case, tokenizer seconds; (c) phase 5's 128-row corpus with
+             case, tokenizer seconds; (c) phase 5's 64-row corpus with
              --struct device at levels 2 (2 cases) and 0 (1 case, 2 before
              phase 11 came), card == CPU, and at level 2 stopped after
              case 1 and resumed from --state == straight.
@@ -190,6 +191,29 @@ Phases, each fatal on failure:
              --trace FILE --xprof DIR == without, the trace's runner
              spans, the profiler's case kernel, the span totals against
              the device's kernel time.
+ 12. gen     grammar generation (``--gen``, gen/, ops/grammar.py,
+             services/gfcomms.py, obs/report.py): (a) the expander on
+             the card == the port's CPU expander over 4096 slots of
+             cases 0 and 3 (computed by a process of its own started
+             with the script) and == the keyed host twin
+             (models/genfuzz.generate_keyed) on 64 of them, for
+             demo-http, demo-tlv, demo-lines and the reference tests'
+             KITCHEN_SINK, fuzz off and on; a DSL grammar 7,808 B wide
+             at 4096 slots: ms a panel, steps against max_steps,
+             launches a panel (torch.profiler), peak device memory;
+             (b) ``python -m erlamsa_tpu_torch --gen FILE:4096 --feedback
+             --corpus DIR --layout arena --adopt --batch 4096 -n 2
+             --metrics-out --trace`` in this process (ERLAMSA_PALLAS=2):
+             samples/s, the ``# gen:`` line, case-kernel launches; the
+             same command under ``--chaos gen.expand:x1`` in a process of
+             its own writes the same files and store with host_fallback >
+             0; at :64, batch 64, card == CPU; ``python -m
+             erlamsa_tpu_torch.obs.report`` over (b)'s files prints a
+             stage ledger; (c) gfcomms: sequential at a fixed -s replays
+             the ErlRand stream's bytes twice; batched on the card, 64
+             loopback connections x 16 packets from a process of its
+             own, every reply == the CPU engine's expand(conn, slot):
+             packets/s, p50/p99.
 
 After each of phases 4 to 7, host-pool workers still running rows
 abandoned past -T are stopped, so they take no cores from a later phase.
@@ -208,6 +232,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --serving-only
     python3 chip_smoke.py --proxy-only
     python3 chip_smoke.py --coverage-only
+    python3 chip_smoke.py --gen-only
 
 --profile   trace one level-2 case at the main path's shape under
             torch.profiler (CPU and CUDA): the ten largest device ops,
@@ -229,6 +254,7 @@ checkout of the repository, it exits non-zero and prints no result.
 --proxy-only  build the kernels and run phase 10 alone; no result lines.
 --coverage-only  build the kernels and run phase 11 alone, phase 8's
             store built meanwhile ((c) waits for it); no result lines.
+--gen-only  build the kernels and run phase 12 alone; no result lines.
 --full-set-only  build the kernels and run phase 4's level-2 run alone,
             at 2 and at 4 cases, with no store build beside it: a run's
             fixed seconds and its seconds a case; no result lines.
@@ -314,7 +340,8 @@ STATE_LEVELS = (2,)
 GRAPH_LAUNCHES = 20  # launches per CUDA graph when timing a kernel
 M = 31  # device mutators
 BIG_PRI = 300_000_000  # x a score of 8-10 passes 2^31: the int32 bound wraps
-MIXED_ROWS, MIXED_CASES = 128, 2  # the CUDA == CPU run of the full set
+# the CUDA == CPU run of the full set (128 rows before phase 12 came)
+MIXED_ROWS, MIXED_CASES = 64, 2
 # phases 5 and 7 (c): cases of the level-0 card == CPU legs (2 before
 # phase 11 came; level 0's class step is phase 3's, held there too)
 MIXED_CASES_L0 = 1
@@ -899,7 +926,7 @@ def reap_host_workers():
 
 
 def full_set_cuda_vs_cpu(level, corpus, seed3, dev):
-    """Phase 5 for one stream: the whole 128-row run of the full set on
+    """Phase 5 for one stream: the whole 64-row run of the full set on
     the card and on the CPU; every row's bytes equal, the host-routed
     ones included (routing depends on every row's scores, so whole runs
     are compared, not subsets). Returns the CPU run's rows per case."""
@@ -1483,7 +1510,7 @@ def struct_phase(rng, mixed, seed3, dev, card, with_off=False):
               f"{cpu_s:.1f}s on the CPU)")
         del files
 
-        # (c) the 128-row mixed corpus, --struct device, on the card and
+        # (c) the 64-row mixed corpus, --struct device, on the card and
         # on the CPU at levels 2 and 0; at level 2 also stopped after
         # MIXED_SPLIT cases and resumed from --state
         n_rows = len(mixed)
@@ -3532,6 +3559,524 @@ def coverage_phase(seed, seed3, dev, card, corpus, build, twins,
     return launches
 
 
+GEN_SLOTS = 4096  # (a) slots of a panel; (b) samples seeding the store
+GEN_CASES = (0, 3)  # (a) cases of each panel held card == CPU
+GEN_TWIN_SLOTS = 64  # (a) slots of each panel held to the keyed twin
+GEN_GRAMMARS = ("demo-http", "demo-tlv", "demo-lines", "sink")
+# (a) and (b): a DSL grammar whose panel is 7,808 B wide (64 sized
+# records of 120 random bytes), the widest the campaign's classes take
+GEN_WIDE = "(loop 64 (sizer u16be (rbinary 120)))"
+# tests/test_grammar_kernels.py's grammar of every node kind, nested
+KITCHEN_SINK = """
+; all node kinds, nested
+(static "HDR\\x00")
+(loop 3
+  (pick_pref
+    (3 (sizer u16be (rbinary 3) (pick (static "") (static "!")
+                                      (range 65 70))))
+    (1 (sizer u32le (static "deep") (loop 2 (rbyte))))
+    (1 (rword)))
+  (static "|"))
+(pick (rdword) (rddword) (session k "dflt"))
+(range 97 99)
+"""
+GEN_CAMPAIGN_CASES = 2  # (b) cases of each campaign run
+GEN_SMALL = 64  # (b) samples and batch of the card == CPU runs
+GF_CONNS = 64  # (c) batched gfcomms connections
+GF_PACKETS = 16  # (c) packets a connection
+
+GF_CLIENT = r"""
+import json, socket, sys, threading, time
+port, want_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+with open(want_path) as f:
+    want = [[bytes.fromhex(r) for r in rows] for rows in json.load(f)]
+first = {}
+for c, rows in enumerate(want):
+    first.setdefault(rows[0], []).append(c)
+lat, found, errors = [], [], []
+lock = threading.Lock()
+
+def conn():
+    try:
+        s = socket.create_connection(("127.0.0.1", port), timeout=60)
+        s.settimeout(60)
+        buf, mine, k = b"", None, 0
+        while k < len(want[0]):
+            t = time.perf_counter()
+            s.sendall(b"ping")
+            if mine is None:
+                # the first reply names the connection among the server's
+                while not any(buf == r for r in first):
+                    if not any(r.startswith(buf) for r in first):
+                        raise RuntimeError("reply 0 is no connection's")
+                    chunk = s.recv(65536)
+                    if not chunk:
+                        raise RuntimeError("closed")
+                    buf += chunk
+                ids = first[buf]
+                mine = ids
+            exp = want[mine[0]][k]
+            if k:
+                while len(buf) < len(exp):
+                    chunk = s.recv(65536)
+                    if not chunk:
+                        raise RuntimeError("closed")
+                    buf += chunk
+            if buf != exp:
+                raise RuntimeError(f"reply {k} differs")
+            with lock:
+                lat.append(time.perf_counter() - t)
+            buf, k = b"", k + 1
+        s.close()
+        with lock:
+            found.append(mine[0])
+    except Exception as e:
+        with lock:
+            errors.append(repr(e))
+
+threads = [threading.Thread(target=conn) for _ in want]
+t0 = time.perf_counter()
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+with open(out_path, "w") as f:
+    json.dump({"wall": time.perf_counter() - t0, "lat": lat,
+               "found": found, "errors": errors}, f)
+"""
+
+
+def gen_grammar(name):
+    """A compiled grammar of phase 12: a builtin, the sink or the wide."""
+    from erlamsa_tpu_torch.gen import BUILTIN_GRAMMARS, compile_grammar
+
+    text = {"sink": KITCHEN_SINK, "wide": GEN_WIDE}.get(name)
+    return compile_grammar(text or BUILTIN_GRAMMARS[name], source=name)
+
+
+def twin_slots():
+    return np.linspace(0, GEN_SLOTS - 1, GEN_TWIN_SLOTS).astype(np.int64)
+
+
+def start_gen_twins(here, seed, out, threads):
+    """Phase 12 (a)'s CPU side (gen_twins) in a process of its own:
+    returns (process, its output file)."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--gen-twins", out, "--gen-threads", str(threads)], cwd=here)
+    return proc, out
+
+
+def gen_twins(out, seed, threads=4) -> int:
+    """Phase 12 (a)'s CPU side, in a process of its own started with the
+    script: for each grammar, fuzz off and on and each case, the port's
+    expander on the CPU over GEN_SLOTS slots and the keyed host twin on
+    GEN_TWIN_SLOTS of them; the wide grammar's CPU rows on those slots.
+    Written to ``out`` (.npz)."""
+    import torch
+
+    from erlamsa_tpu_torch.models.genfuzz import generate_keyed
+    from erlamsa_tpu_torch.ops import grammar, prng
+
+    torch.set_num_threads(threads)
+    base = prng.base_key((seed, 22, 33))
+    arrays = {}
+
+    def twin(cg, case, fuzz, tag):
+        rows = [generate_keyed(cg, grammar.gen_sample_key(
+            base, cg.grammar_id, case, int(s)), fuzz=fuzz)
+            for s in twin_slots()]
+        arrays[tag + "twin"] = np.stack([np.frombuffer(r, np.uint8)
+                                         for r, _n, _t in rows])
+        arrays[tag + "twin_lens"] = np.array([n for _r, n, _t in rows])
+        arrays[tag + "twin_trunc"] = np.array([int(t) for *_r, t in rows])
+
+    for name in GEN_GRAMMARS:
+        cg = gen_grammar(name)
+        for fuzz in (False, True):
+            expand = grammar.make_expand(cg, fuzz=fuzz)
+            for case in GEN_CASES:
+                tag = f"{name}-{int(fuzz)}-{case}-"
+                panel, lens, trunc = expand(base, case, np.arange(GEN_SLOTS))
+                arrays[tag + "panel"] = panel.numpy()
+                arrays[tag + "lens"] = lens.numpy()
+                arrays[tag + "trunc"] = trunc.numpy()
+                twin(cg, case, fuzz, tag)
+    cg = gen_grammar("wide")
+    panel, lens, trunc = grammar.make_expand(cg)(base, 0, twin_slots())
+    arrays["wide-panel"] = panel.numpy()
+    arrays["wide-lens"] = lens.numpy()
+    arrays["wide-trunc"] = trunc.numpy()
+    twin(cg, 0, False, "wide-")
+    np.savez(out + ".tmp.npz", **arrays)
+    os.replace(out + ".tmp.npz", out)
+    return 0
+
+
+def gen_expander(seed3, dev, card, twins):
+    """Phase 12 (a): the expander on the card == the CPU expander over
+    GEN_SLOTS slots of GEN_CASES, == the keyed twin on GEN_TWIN_SLOTS,
+    for the builtins and the sink, fuzz off and on (``twins``: the
+    process making the CPU side, and its file); the wide grammar's
+    panel timed, its launches counted by torch.profiler, its peak
+    memory, its rows == the CPU's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from erlamsa_tpu_torch.ops import grammar, prng
+
+    base = prng.base_key(seed3, device=dev)
+    slots = np.arange(GEN_SLOTS)
+    sel = twin_slots()
+    card_out = {}
+    times = {}
+    for name in GEN_GRAMMARS:
+        cg = gen_grammar(name)
+        for fuzz in (False, True):
+            expand = grammar.make_expand(cg, fuzz=fuzz)
+            for case in GEN_CASES:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = [x.cpu().numpy() for x in expand(base, case, slots)]
+                times[(name, fuzz, case)] = (
+                    (time.perf_counter() - t) * 1e3, expand.steps,
+                    int(got[2].sum()))
+                card_out[(name, fuzz, case)] = got
+    wide = gen_grammar("wide")
+    expand = grammar.make_expand(wide)
+    expand(base, 0, slots)  # the tables to the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    wide_out = [x.cpu().numpy() for x in expand(base, 0, slots)]
+    wide_ms = (time.perf_counter() - t) * 1e3
+    wide_steps = expand.steps
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        expand(base, 0, slots)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    busy, ops = device_busy(prof)
+    launches = sum(e.count for e in ops)
+
+    proc, path = twins
+    t = time.perf_counter()
+    check(proc.wait(timeout=900) == 0, "(a) the CPU expander failed")
+    waited = time.perf_counter() - t
+    cpu = np.load(path)
+    for (name, fuzz, case), (panel, lens, trunc) in card_out.items():
+        tag = f"{name}-{int(fuzz)}-{case}-"
+        for what, a in (("panel", panel), ("lens", lens), ("trunc", trunc)):
+            check(np.array_equal(a, cpu[tag + what]),
+                  f"(a) {name} fuzz={fuzz} case {case}: card != CPU {what}")
+        for what, a in (("twin", panel[sel]), ("twin_lens", lens[sel]),
+                        ("twin_trunc", trunc[sel])):
+            check(np.array_equal(a, cpu[tag + what]),
+                  f"(a) {name} fuzz={fuzz} case {case}: card != keyed "
+                  f"twin ({what})")
+    for what, a in (("panel", wide_out[0][sel]), ("lens", wide_out[1][sel]),
+                    ("trunc", wide_out[2][sel]), ("twin", wide_out[0][sel]),
+                    ("twin_lens", wide_out[1][sel]),
+                    ("twin_trunc", wide_out[2][sel])):
+        check(np.array_equal(a, cpu["wide-" + what]),
+              f"(a) wide: card != CPU/twin {what}")
+    check(not wide_out[2].any() and int(wide_out[1].min()) > 0,
+          "(a) wide rows truncated or empty")
+    for name in GEN_GRAMMARS:
+        cg = gen_grammar(name)
+        print(f"gen (a) {name} (width {cg.width}, max_steps "
+              f"{cg.max_steps}) x {GEN_SLOTS} slots, cases {GEN_CASES}: "
+              + "; ".join(
+                  f"fuzz {'on' if f else 'off'} case {c}: {ms:.1f} ms, "
+                  f"{steps} steps, {tr} truncated"
+                  for (n, f, c), (ms, steps, tr) in times.items()
+                  if n == name)
+              + f"; card == CPU, {GEN_TWIN_SLOTS} slots == keyed twin")
+    print(f"gen (a) wide {GEN_WIDE!r} (width {wide.width}) x {GEN_SLOTS} "
+          f"slots: {wide_ms:.1f} ms a panel (wall, synchronized; the "
+          f"tables already on the card), {wide_steps} steps of max_steps "
+          f"{wide.max_steps}, {launches} launches a panel "
+          f"(torch.profiler; {prof_ms:.1f} ms profiled, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / prof_ms:.3f}), peak "
+          f"device memory {peak} B, {int(wide_out[1].sum())} bytes; "
+          f"{GEN_TWIN_SLOTS} rows == CPU == keyed twin; the CPU side "
+          f"waited {waited:.1f}s; card {card}")
+
+
+def gen_cli(argv, env):
+    """``python -m erlamsa_tpu_torch`` in this process (the campaign's
+    launches are counted here): returns (exit code, stderr text)."""
+    import io
+
+    from erlamsa_tpu_torch.obs import trace
+    from erlamsa_tpu_torch.services import chaos, cli, metrics
+
+    metrics.GLOBAL = metrics.Counters()
+    err, real = io.StringIO(), sys.stderr
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    sys.stderr = err
+    try:
+        rc = cli.main(argv)
+    except BaseException:
+        real.write(err.getvalue()[-3000:])
+        raise
+    finally:
+        sys.stderr = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        trace.configure(None)
+        chaos.configure(None)
+    return rc, err.getvalue()
+
+
+def gen_args(seed3, work, tag, spec, batch, device):
+    """The campaign's command line: --gen SPEC seeding a --feedback
+    store under work/tag, files to work/tag-out."""
+    os.makedirs(os.path.join(work, tag + "-out"))
+    return ["-s", ",".join(map(str, seed3)), "-n", str(GEN_CAMPAIGN_CASES),
+            "--gen", spec, "--feedback", "--corpus",
+            os.path.join(work, tag), "--layout", "arena", "--adopt",
+            "--batch", str(batch), "--device", device, "-o",
+            os.path.join(work, tag + "-out", "%n")]
+
+
+def gen_campaign(seed3, dev, card, work, meanwhile):
+    """Phase 12 (b): --gen wide:4096 --feedback --corpus DIR --adopt
+    --batch 4096 -n 2 through the CLI on the card (ERLAMSA_PALLAS=2),
+    with --metrics-out and --trace; the same command under --chaos
+    gen.expand:x1 in a process of its own meanwhile (its panel on the
+    keyed twin) writes the same files; at :64, batch 64, card == CPU;
+    obs.report over the files prints a stage ledger. ``meanwhile()``
+    runs while the chaos run ends. Returns the case kernel's launches of
+    the clean run."""
+    import torch
+
+    grammar_file = os.path.join(work, "wide.gf")
+    with open(grammar_file, "w") as f:
+        f.write(GEN_WIDE + "\n")
+    spec = f"{grammar_file}:{GEN_SLOTS}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_chaos = time.perf_counter()
+    chaos_log = open(os.path.join(work, "chaos.err"), "w+")
+    chaos_proc = subprocess.Popen(
+        [sys.executable, "-m", "erlamsa_tpu_torch",
+         *gen_args(seed3, work, "chaos", spec, BATCH, dev.type),
+         "--chaos", "gen.expand:x1", "--metrics-out",
+         os.path.join(work, "chaos-m.json")], cwd=work,
+        env=dict(os.environ, PYTHONPATH=here, ERLAMSA_PALLAS="2"),
+        stdout=subprocess.DEVNULL, stderr=chaos_log)
+    try:
+        metrics_path = os.path.join(work, "m.json")
+        trace_path = os.path.join(work, "t.json")
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rc, err = gen_cli(gen_args(seed3, work, "clean", spec, BATCH,
+                                   dev.type)
+                          + ["--metrics-out", metrics_path, "--trace",
+                             trace_path], {"ERLAMSA_PALLAS": "2"})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"(b) the campaign failed: {err[-2000:]}")
+        said = [ln for ln in err.splitlines() if ln.startswith("# gen:")]
+        check(len(said) == 1 and "host-degraded" not in said[0],
+              f"(b) the # gen: line: {said}")
+        with open(metrics_path) as f:
+            snap = json.load(f)
+        check(snap["gen"]["expansions"] == GEN_SLOTS
+              and snap["gen"]["host_fallback"] == 0,
+              f"(b) gen metrics {snap['gen']}")
+        stages = snap["pipeline"]["stages"]
+        check(launches["case_rounds"] > 0 and launches["round_apply"] == 0,
+              f"(b) launches {launches}")
+        samples = GEN_CAMPAIGN_CASES * BATCH
+        clean = digests(os.path.join(work, "clean-out"), samples)
+
+        # the report tool over the clean run's files
+        res = subprocess.run(
+            [sys.executable, "-m", "erlamsa_tpu_torch.obs.report",
+             "--metrics", metrics_path, "--trace", trace_path], cwd=work,
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=here))
+        check(res.returncode == 0 and "-- stage ledger" in res.stdout,
+              f"(b) obs.report: {res.stdout[-1000:]} {res.stderr[-1000:]}")
+        ledger = res.stdout.split("-- stage ledger")[1].split("\n\n")[0]
+        ledger_rows = [ln for ln in ledger.splitlines()[1:] if ln.strip()]
+        check(ledger_rows, "(b) obs.report printed an empty stage ledger")
+
+        # card == CPU at a small size, each run through the CLI here
+        small = {}
+        t_small = time.perf_counter()
+        for i, device in enumerate((dev.type, "cpu")):
+            tag = f"small-{i}"
+            rc, err = gen_cli(gen_args(seed3, work, tag,
+                                       f"{grammar_file}:{GEN_SMALL}",
+                                       GEN_SMALL, device),
+                              {"ERLAMSA_PALLAS": "2"})
+            check(rc == 0, f"(b) the {device} run at :{GEN_SMALL} failed: "
+                  f"{err[-2000:]}")
+            small[i] = (digests(os.path.join(work, tag + "-out"),
+                                     GEN_CAMPAIGN_CASES * GEN_SMALL),
+                             sorted(os.listdir(os.path.join(work, tag,
+                                                            "seeds"))))
+        check(small[0] == small[1],
+              f"(b) at :{GEN_SMALL}, batch {GEN_SMALL}: card != CPU")
+        small_s = time.perf_counter() - t_small
+
+        meanwhile()
+        chaos_proc.wait(timeout=900)
+        chaos_secs = time.perf_counter() - t_chaos
+        chaos_log.seek(0)
+        chaos_err = chaos_log.read()
+        check(chaos_proc.returncode == 0,
+              f"(b) the chaos run failed: {chaos_err[-2000:]}")
+        with open(os.path.join(work, "chaos-m.json")) as f:
+            chaos_gen = json.load(f)["gen"]
+        check(chaos_gen["host_fallback"] > 0,
+              f"(b) the chaos run's gen metrics {chaos_gen}")
+        check(digests(os.path.join(work, "chaos-out"), samples) == clean,
+              "(b) the chaos run's files differ from the clean run's")
+        check(sorted(os.listdir(os.path.join(work, "chaos", "seeds")))
+              == sorted(os.listdir(os.path.join(work, "clean", "seeds"))),
+              "(b) the chaos run's store differs from the clean run's")
+        chaos_said = [ln for ln in chaos_err.splitlines()
+                      if ln.startswith("# gen:")]
+    finally:
+        if chaos_proc.poll() is None:
+            chaos_proc.kill()
+            chaos_proc.wait()
+        chaos_log.close()
+    stage_s = ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
+    print(f"gen (b) --gen wide:{GEN_SLOTS} --feedback --layout arena "
+          f"--adopt --batch {BATCH} -n {GEN_CAMPAIGN_CASES}, level 2, "
+          f"through the CLI: {samples / secs:.1f} samples/s over the run "
+          f"({secs:.1f}s, the store's {GEN_SLOTS} adds included); "
+          f"{said[0][2:]}; case kernel launches {launches['case_rounds']}; "
+          f"stages (s): {stage_s}; peak device memory {peak} B; card "
+          f"{card}")
+    print(f"gen (b) the same under --chaos gen.expand:x1 in its own "
+          f"process ({chaos_secs:.1f}s): {chaos_said[0][2:] if chaos_said else '?'}; "
+          f"host_fallback {chaos_gen['host_fallback']}, files and store == "
+          f"the clean run's; at :{GEN_SMALL}, batch {GEN_SMALL}: card == "
+          f"CPU (files and store; {small_s:.1f}s both); obs.report: "
+          f"{len(ledger_rows)} stage ledger rows")
+    return launches["case_rounds"]
+
+
+def gf_session(port, packets):
+    """One connection to a gfcomms server, lockstep, each reply read to
+    its expected length (``packets``: (request, expected reply))."""
+    import socket
+
+    out = []
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.settimeout(60)
+        for req, want in packets:
+            s.sendall(req)
+            buf = b""
+            while len(buf) < len(want):
+                chunk = s.recv(65536)
+                check(chunk, "(c) the server closed the connection")
+                buf += chunk
+            out.append(buf)
+    return out
+
+
+def gen_gfcomms(seed3, dev, card, work):
+    """Phase 12 (c): gfcomms sequential at a fixed seed replays the
+    ErlRand stream's bytes twice; batched on the card, GF_CONNS loopback
+    connections x GF_PACKETS packets from a process of its own: every
+    reply == the CPU engine's expand(conn, slot); packets/s, p50/p99."""
+    from erlamsa_tpu_torch.gen import (BUILTIN_GRAMMARS, GenEngine,
+                                       parse_grammar)
+    from erlamsa_tpu_torch.models.genfuzz import fuzz_grammar
+    from erlamsa_tpu_torch.services.gfcomms import GfComms
+    from erlamsa_tpu_torch.utils.erlrand import ErlRand
+
+    tree = parse_grammar(BUILTIN_GRAMMARS["demo-lines"])
+    r = ErlRand(seed3)
+    want = [fuzz_grammar(r, tree) for _ in range(GF_PACKETS)]
+    runs = []
+    for _ in range(2):
+        srv = GfComms(0, grammar=tree, seed=seed3).serve(block=False)
+        try:
+            runs.append(gf_session(srv._srv.getsockname()[1],
+                                   [(b"x", w) for w in want]))
+        finally:
+            srv.stop()
+    check(runs[0] == runs[1] == want,
+          "(c) sequential gfcomms did not replay the seed's bytes")
+
+    cg = gen_grammar("sink")
+    # every (connection, packet) in one expansion on the CPU
+    t = time.perf_counter()
+    cpu, _trunc = GenEngine(cg, seed3, fuzz=True, device="cpu").expand(
+        np.repeat(np.arange(GF_CONNS), GF_PACKETS),
+        slots=np.tile(np.arange(GF_PACKETS), GF_CONNS))
+    expected = [cpu[c * GF_PACKETS:(c + 1) * GF_PACKETS]
+                for c in range(GF_CONNS)]
+    cpu_s = time.perf_counter() - t
+    want_path = os.path.join(work, "gf-want.json")
+    with open(want_path, "w") as f:
+        json.dump([[w.hex() for w in rows] for rows in expected], f)
+    eng = GenEngine(cg, seed3, fuzz=True, device=dev)
+    srv = GfComms(0, seed=seed3, engine=eng).serve(block=False)
+    try:
+        out_path = os.path.join(work, "gf-out.json")
+        res = subprocess.run(
+            [sys.executable, "-c", GF_CLIENT,
+             str(srv._srv.getsockname()[1]), want_path, out_path],
+            capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"(c) the load client: {res.stderr}")
+    finally:
+        srv.stop()
+    with open(out_path) as f:
+        load = json.load(f)
+    check(not load["errors"], f"(c) batched replies: {load['errors'][:4]}")
+    check(sorted(load["found"]) == list(range(GF_CONNS)),
+          f"(c) connections answered as {sorted(load['found'])}")
+    check(eng.expansions == GF_CONNS * GF_PACKETS and not eng.degraded,
+          f"(c) {eng.expansions} expansions, degraded {eng.degraded}")
+    lat = np.sort(np.array(load["lat"])) * 1e3
+    print(f"gen (c) gfcomms sequential -s {','.join(map(str, seed3))}: "
+          f"{GF_PACKETS} replies == the ErlRand stream's, twice; batched "
+          f"on the card (sink, fuzz): {GF_CONNS} loopback connections x "
+          f"{GF_PACKETS} packets from a process of its own, every reply "
+          f"== the CPU engine's expand(conn, slot): "
+          f"{len(lat) / load['wall']:.1f} packets/s, p50/p99 "
+          f"{np.percentile(lat, 50):.2f}/{np.percentile(lat, 99):.2f} ms "
+          f"({load['wall']:.1f}s; the CPU's {GF_CONNS * GF_PACKETS} rows "
+          f"{cpu_s:.1f}s); card {card}")
+
+
+def gen_phase(seed, seed3, dev, card, twins):
+    """Phase 12: grammar generation on the card. Returns the case
+    kernel's launches of (b)'s campaign."""
+    from erlamsa_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_gen_",
+                            dir=cuda_build.BUILD_DIR)
+    try:
+        # (c) and (a) while (b)'s chaos run, in its own process, ends
+        launches = gen_campaign(seed3, dev, card, work, lambda: (
+            gen_gfcomms(seed3, dev, card, work),
+            gen_expander(seed3, dev, card, twins)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"gen phase: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def free_port() -> int:
     import socket
 
@@ -3786,10 +4331,17 @@ def main() -> int:
     ap.add_argument("--coverage-only", action="store_true",
                     help="build the kernels and run phase 11 alone, its "
                          "store built meanwhile (no result lines)")
+    ap.add_argument("--gen-only", action="store_true",
+                    help="build the kernels and run phase 12 alone (no "
+                         "result lines)")
     ap.add_argument("--build-store", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 8's store, in a process
     ap.add_argument("--cov-twins", metavar="FILE", default=None,
                     help=argparse.SUPPRESS)  # phase 11 (a)'s numpy twins
+    ap.add_argument("--gen-twins", metavar="FILE", default=None,
+                    help=argparse.SUPPRESS)  # phase 12 (a)'s CPU side
+    ap.add_argument("--gen-threads", type=int, default=4,
+                    help=argparse.SUPPRESS)  # its torch threads
     args = ap.parse_args()
 
     import torch
@@ -3807,6 +4359,8 @@ def main() -> int:
         return build_store(args.build_store, args.seed)
     if args.cov_twins:
         return cov_twins(args.cov_twins, args.seed)
+    if args.gen_twins:
+        return gen_twins(args.gen_twins, args.seed, args.gen_threads)
     t_start = time.perf_counter()
     if args.full_set_only:
         return full_set_alone(args.seed)
@@ -3814,12 +4368,25 @@ def main() -> int:
         return serving_alone(args.seed, t_start, args.profile)
     if args.proxy_only:
         return proxy_alone(args.seed, t_start)
-    # phase 8's campaign store builds in a process of its own meanwhile
     from erlamsa_tpu_torch.ops import cuda_build
 
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     store_root = tempfile.mkdtemp(prefix="chip_smoke_store_",
                                   dir=cuda_build.BUILD_DIR)
+    gen_path = os.path.join(store_root, "gen.npz")
+    # processes started later by phases(), stopped here however it ends
+    later = []
+    if args.gen_only:
+        # phase 12 (a)'s CPU expander in a process of its own meanwhile
+        later.append(start_gen_twins(here, args.seed, gen_path, 4))
+        try:
+            return gen_alone(args.seed, t_start, later[0])
+        finally:
+            if later[0][0].poll() is None:
+                later[0][0].kill()
+                later[0][0].wait()
+            shutil.rmtree(store_root, ignore_errors=True)
+    # phase 8's campaign store builds in a process of its own meanwhile
     store_proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
          "--build-store", store_root], cwd=here)
@@ -3834,9 +4401,9 @@ def main() -> int:
                                   (store_proc, store_root),
                                   (twins_proc, twins_path))
         return phases(args, here, t_start, (store_proc, store_root),
-                      (twins_proc, twins_path))
+                      (twins_proc, twins_path), later, gen_path)
     finally:
-        for proc in (store_proc, twins_proc):
+        for proc in [store_proc, twins_proc] + [p for p, _f in later]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3921,10 +4488,27 @@ def coverage_alone(seed, t_start, build, twins) -> int:
     return 0
 
 
-def phases(args, here, t_start, build, twins) -> int:
-    """Phases 1-11 and the kernel timings; ``build`` is phase 8's store
+def gen_alone(seed, t_start, gen_cpu) -> int:
+    """--gen-only: build the kernels and run phase 12 alone."""
+    import torch
+
+    from erlamsa_tpu_torch.ops import cuda_build
+
+    for mod in ("jax", "erlamsa_tpu"):
+        check(mod not in sys.modules, f"{mod} was imported")
+    card = card_line()
+    print(f"card: {card}")
+    cuda_build.build_all(["round_apply", "case_rounds", "randmask"])
+    gen_phase(seed, (seed, 22, 33), torch.device("cuda"), card, gen_cpu)
+    print(f"chip_smoke --gen-only: {time.perf_counter() - t_start:.1f}s")
+    return 0
+
+
+def phases(args, here, t_start, build, twins, later, gen_path) -> int:
+    """Phases 1-12 and the kernel timings; ``build`` is phase 8's store
     build (process, directory), ``twins`` phase 11 (a)'s numpy twins
-    (process, file)."""
+    (process, file); phase 12 (a)'s CPU side starts before phase 8 into
+    ``gen_path``, its (process, file) appended to ``later``."""
     import torch
 
     from erlamsa_tpu_torch.ops import case_rounds as cr
@@ -4011,7 +4595,7 @@ def phases(args, here, t_start, build, twins) -> int:
           "; ".join(f"{what} {rates[lv][0]:.1f} / {rates[lv][1]:.1f}"
                     for lv, what in STREAMS))
 
-    # 5. the full set on the card == on the CPU, whole 128-row runs; it
+    # 5. the full set on the card == on the CPU, whole 64-row runs; it
     # times no rate, so it runs before phase 4, beside the store build
     mixed = mixed_corpus(np.random.default_rng(args.seed + 1), MIXED_ROWS)
     cpu_runs = {level: full_set_cuda_vs_cpu(level, mixed, seed3, dev)
@@ -4044,6 +4628,9 @@ def phases(args, here, t_start, build, twins) -> int:
     struct_phase(np.random.default_rng(args.seed + 2), mixed, seed3, dev,
                  card, with_off=args.profile)
     reap_host_workers()
+    # phase 12 (a)'s CPU expander, in a process of its own beside phases
+    # 8-11 (after the host-bound phases 4-7, on two threads)
+    later.append(start_gen_twins(here, args.seed, gen_path, 2))
     # 8. the feedback corpus engine through run_corpus_batch
     adopt_rate = feedback_phase(args.seed, seed3, dev, card, build)
     # 9. the FaaS serving tier through serve() and the CLI's -H
@@ -4053,6 +4640,8 @@ def phases(args, here, t_start, build, twins) -> int:
     # 11. the coverage plane, distillation and the host tier
     cov_launches = coverage_phase(args.seed, seed3, dev, card, corpus,
                                   build, twins, adopt_rate=adopt_rate)
+    # 12. grammar generation: the expander, the --gen campaign, gfcomms
+    gen_launches = gen_phase(args.seed, seed3, dev, card, later[-1])
 
     rows = []
     # round kernel on the ERLAMSA_PALLAS=1 path's first-round inputs
@@ -4107,7 +4696,7 @@ def phases(args, here, t_start, build, twins) -> int:
     bound_ms, bound_by = bound(moved, words, pipes)
     rows.append(("case_rounds", "erlamsa_tpu/ops/pallas_rounds.py:1180",
                  launches[2]["case_rounds"] + proxy_launches
-                 + cov_launches,
+                 + cov_launches + gen_launches,
                  max(errs["case_rounds"], err),
                  ms, plain_ms, bound_ms, bound_by, B, L, moved, words,
                  wrap_ms))

@@ -76,8 +76,14 @@ byte-identical to the hash-novelty baseline. --distill retires, at the
 end of the run, every seed whose edges the kept set covers
 (corpus/distill.greedy_minimize).
 
-Not ported yet: the corpus fleet (shards, fleet_nodes, spmd) and grammar
-seeding (gen); each raises a ValueError naming it.
+Grammar seeding (--gen, opts["gen"]): before the first case the store
+takes the samples of ONE batched grammar expansion (gen/engine.py
+GenEngine on the run's device, origin "gen"), and stats["gen"] counts
+them; an injected gen.expand fault or a lost device expands on the
+keyed host twin instead, byte-identically.
+
+Not ported yet: the corpus fleet (shards, fleet_nodes, spmd); each
+raises a ValueError naming it.
 """
 
 from __future__ import annotations
@@ -121,8 +127,7 @@ EXIT_DEGRADED = 3
 # options of the reference runner this port does not run yet
 _NOT_PORTED = (("shards", "--shards (the corpus fleet)"),
                ("fleet_nodes", "--fleet-nodes (the corpus fleet)"),
-               ("spmd", "--spmd (the corpus fleet)"),
-               ("gen", "--gen (grammar seeding)"))
+               ("spmd", "--spmd (the corpus fleet)"))
 
 
 def _out_hash(data: bytes) -> bytes:
@@ -221,8 +226,8 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
     reference runner's: corpus_dir, seed, n, paths / recursive or corpus
     (seeds handed over in-process), mutations, output, pipeline, layout,
     arena_pages, arena_page, arena_classes, adopt, struct,
-    feedback, feedback_bus, coverage, coverage_hub, distill, state_path,
-    checkpoint_every,
+    feedback, feedback_bus, coverage, coverage_hub, distill, gen (a dict:
+    grammar or compiled, label, n, fuzz), state_path, checkpoint_every,
     device_capacity_max, and _stats, a dict the run fills with its
     counts. Returns the process exit code."""
     from ..constants import CAPACITY_CLASSES
@@ -290,6 +295,35 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
             print(f"# corpus: {new} new, {dup} duplicate, "
                   f"{skipped} skipped -> {len(store)} seeds in store",
                   file=sys.stderr)
+    gen_opts = opts.get("gen")
+    gen_engine = None
+    if gen_opts:
+        # generate-then-mutate: seed the campaign from ONE batched
+        # expansion of the compiled grammar on the run's device.
+        # Generated rows enter the store like any other seed and the
+        # gather→mutate→score loop takes over — zero per-case host
+        # expansion on the hot path. Device loss (or an injected
+        # gen.expand fault) degrades the expansion to the keyed host
+        # twin per (case, slot), byte-identically, so the campaign is
+        # the same either way.
+        from ..gen import GenEngine, compile_grammar
+
+        cg = gen_opts.get("compiled")
+        if cg is None:
+            cg = compile_grammar(gen_opts["grammar"],
+                                 source=gen_opts.get("label", "--gen"))
+        gen_engine = GenEngine(cg, opts["seed"],
+                               fuzz=bool(gen_opts.get("fuzz")), device=dev)
+        gen_n = int(gen_opts.get("n") or 64)
+        payloads, gen_trunc = gen_engine.expand(case_idx=0, n=gen_n)
+        # the store's index saved once for the panel, not once a seed
+        gen_added = sum(fresh for _sid, fresh in store.add_many(
+            [p for p in payloads if p], origin="gen"))
+        print(f"# gen: {len(payloads)} samples from grammar "
+              f"{cg.source} -> {gen_added} new seeds"
+              f" ({gen_trunc} truncated)"
+              f"{', host-degraded' if gen_engine.degraded else ''}",
+              file=sys.stderr)
     if len(store) == 0:
         print("no corpus (store empty and no readable seeds)",
               file=sys.stderr)
@@ -1179,6 +1213,14 @@ def run_corpus_batch(opts: dict, batch: int = 1024, device=None,
                      store_stats=store.stats())
         if arena is not None:
             stats["arena"] = arena.stats()
+        if gen_engine is not None:
+            stats["gen"] = {
+                "grammar": gen_engine.cg.source,
+                "grammar_id": gen_engine.cg.grammar_id,
+                "generated": gen_engine.expansions,
+                "host_fallback": gen_engine.host_fallbacks,
+                "degraded": gen_engine.degraded,
+            }
         if cov is not None:
             stats["coverage"] = {
                 "edges": cov.edges(), "folds": cov.folds,

@@ -145,46 +145,67 @@ class CorpusStore:
         """Dedup-add one seed. Returns (seed_id, newly_added); empty data
         is rejected with (None, False) — a zero-byte seed can never be
         mutated into anything and would poison batch assembly."""
-        if not data:
-            return None, False
-        sid = seed_id_for(data)
-        with self._lock:
-            if sid in self._meta:
-                return sid, False
-            path = os.path.join(self.seeds_dir, sid)
-            if not os.path.exists(path):
-                def _write_seed():
-                    chaos.fault_point("store.seed")
-                    tmp = path + ".tmp"
-                    with open(tmp, "wb") as f:
-                        f.write(data)
-                        f.flush()
-                        os.fsync(f.fileno())
-                    os.replace(tmp, path)
+        return self.add_many([data], origin, discovered_by)[0]
 
-                try:
-                    SAVE_RETRY.call(_write_seed, site="store.seed")
-                except (RetryExhausted, OSError):
-                    # best-effort like _save_locked: the seed keeps being
-                    # served from the in-memory cache this run; fsck drops
-                    # the metadata entry if the file never landed
-                    pass
-            self._meta[sid] = {
-                "idx": self._next_idx,
-                "len": len(data),
-                "origin": origin,
-                "discovered_by": discovered_by,
-                "energy": INIT_ENERGY,
-                "hits": 0,
-                "events": {},
-            }
-            self._next_idx += 1
-            self._cache[sid] = data
-            self._save_locked()
+    def add_many(self, datas, origin: str = "import",
+                 discovered_by: str | None = None
+                 ) -> list[tuple[str | None, bool]]:
+        """``add`` for each of ``datas`` in order, with corpus.json saved
+        once after them all (each save writes the whole index, so a
+        save per seed makes a panel of n seeds cost n^2; a crash between
+        leaves seed files that fsck adopts as orphans)."""
+        got = []
+        with self._lock:
+            for data in datas:
+                got.append(self._add_locked(data, origin, discovered_by))
+            if any(fresh for _sid, fresh in got):
+                self._save_locked()
         if self.listener is not None:
             # outside self._lock: the listener (arena admission queue)
             # has its own lock and must not nest under the store's
-            self.listener(sid)
+            for sid, fresh in got:
+                if fresh:
+                    self.listener(sid)
+        return got
+
+    def _add_locked(self, data: bytes, origin: str,
+                    discovered_by: str | None) -> tuple[str | None, bool]:
+        """Caller holds self._lock: one seed's file and index entry, the
+        index not saved."""
+        if not data:
+            return None, False
+        sid = seed_id_for(data)
+        if sid in self._meta:
+            return sid, False
+        path = os.path.join(self.seeds_dir, sid)
+        if not os.path.exists(path):
+            def _write_seed():
+                chaos.fault_point("store.seed")
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, path)
+
+            try:
+                SAVE_RETRY.call(_write_seed, site="store.seed")
+            except (RetryExhausted, OSError):
+                # best-effort like _save_locked: the seed keeps being
+                # served from the in-memory cache this run; fsck drops
+                # the metadata entry if the file never landed
+                pass
+        self._meta[sid] = {
+            "idx": self._next_idx,
+            "len": len(data),
+            "origin": origin,
+            "discovered_by": discovered_by,
+            "energy": INIT_ENERGY,
+            "hits": 0,
+            "events": {},
+        }
+        self._next_idx += 1
+        self._cache[sid] = data
         return sid, True
 
     def add_paths(self, paths: list[str]) -> tuple[int, int, int]:

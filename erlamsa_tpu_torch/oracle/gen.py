@@ -207,7 +207,14 @@ def make_generator(ctx: Ctx, pris: list[tuple[str, int]], paths, opts, n_cases: 
         elif name == "genfuz" and external is not None:
             candidates.append((pri, name, external))
         elif name == "genfuz" and opts.get("gen_grammar") is not None:
-            raise ValueError("grammar generators (--gen) are not ported")
+            # --gen without an external module: the parsed grammar fills
+            # the reference's genfuz slot through the sequential ErlRand
+            # path (models/genfuzz.make_external_generator); the batched
+            # counter-keyed path lives in gen/ + ops/grammar.py
+            from ..models.genfuzz import make_external_generator
+
+            candidates.append((pri, name, make_external_generator(
+                opts["gen_grammar"], seed=opts.get("seed"))))
     if not candidates:
         raise ValueError("No generators!")
     if len(candidates) == 1:

@@ -16,8 +16,13 @@ closed-loop corpus engine (corpus/runner.py) on the card, with its
 gating adoption on new edges, ``--distill`` retiring subsumed seeds at
 the end. With ``-H HOST:PORT`` it serves fuzzing as a service over HTTP
 (services/faas.py); with ``-i proto://...`` it runs the fuzzing MitM
-proxy (services/proxy.py); both take --backend. ``-e MODULE`` loads an
-external module (services/external.py) before any mode, ``--monitor``
+proxy (services/proxy.py); both take --backend. ``--gen GRAMMAR[:N]``
+compiles a grammar (gen/): with --feedback its samples, expanded on the
+card, seed the store; with --backend oracle it fills the genfuz
+generator slot; ``--gfcomms PORT`` serves it per TCP packet, sequential
+or (``--gfcomms-batched``) through the expander on the card. ``-e
+MODULE`` loads an external module (services/external.py) before any
+mode, ``--monitor``
 starts the monitor plane, ``-L``/``--list-findings`` write and read the
 findings store, and ``--trace``/``--xprof``/``--flight-dir`` arm the
 observability side channel (obs/), which never changes a byte.
@@ -36,6 +41,12 @@ observability side channel (obs/), which never changes a byte.
         seeds/*
     python -m erlamsa_tpu_torch -s 1,2,3 -H 127.0.0.1:17771
     python -m erlamsa_tpu_torch -s 1,2,3 -i tcp://8080:127.0.0.1:80 -P 1.0,1.0
+    python -m erlamsa_tpu_torch -s 1,2,3 -n 8 --gen demo-tlv:4096 \
+        --feedback --corpus DIR
+    python -m erlamsa_tpu_torch --backend oracle -s 1,2,3 -g genfuz \
+        --gen demo-http -n 4
+    python -m erlamsa_tpu_torch -s 1,2,3 --gen demo-lines --gfcomms 7000 \
+        --gfcomms-batched
 """
 
 from __future__ import annotations
@@ -411,6 +422,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device of the device paths (default cuda; "
                         "'cpu' for the plain path)")
+    gen = p.add_argument_group(
+        "grammar generation (gen/; generate-then-mutate)")
+    gen.add_argument("--gen", default=None, metavar="GRAMMAR[:N]",
+                     help="compile GRAMMAR (a builtin name or an "
+                          "s-expression DSL file; see README "
+                          "'Generation-based fuzzing') for expansion on "
+                          "the card. With --feedback, seed the campaign "
+                          "with N generated samples (default 64) from one "
+                          "batched expander call — device loss degrades to "
+                          "the keyed host oracle byte-identically (chaos "
+                          "site gen.expand). Without --feedback the "
+                          "grammar feeds the oracle engine's genfuz "
+                          "generator slot (--backend oracle). Spec errors "
+                          "are hard errors")
+    gen.add_argument("--gfcomms", type=int, default=None, metavar="PORT",
+                     help="serve grammar-generated data per TCP packet "
+                          "(services/gfcomms.py; requires --gen). -s "
+                          "seeds the stream and is logged at startup, so "
+                          "a fixed seed replays byte-identically")
+    gen.add_argument("--gfcomms-batched", action="store_true",
+                     help="gfcomms drains a connection's pending packets "
+                          "through ONE expander call on the card; "
+                          "responses are keyed by (connection, packet "
+                          "index), so the single-connection replay "
+                          "contract holds regardless of how packets were "
+                          "batched")
     obs = p.add_argument_group(
         "observability (obs/; a side channel — outputs at a fixed -s are "
         "byte-identical with tracing on or off)")
@@ -469,6 +506,20 @@ def main(argv=None) -> int:
             "runs over the runner's end-of-run tensor): drop --shards/"
             "--fleet-nodes/--spmd to distill, or drop --distill to run "
             "the fleet with coverage")
+    gen_opts = _gen_opts(args)
+    if args.gen and fleet_mode:
+        # hard error, not a silent ignore: generation is single-device
+        # first (one panel seeds one store before the campaign starts)
+        raise SystemExit(
+            "erlamsa-tpu: --gen is single-device only for now: drop "
+            "--shards/--fleet-nodes/--spmd to run generate-then-mutate, "
+            "or drop --gen to run the fleet")
+    if args.gfcomms is not None and not args.gen:
+        raise SystemExit("erlamsa-tpu: --gfcomms requires --gen GRAMMAR "
+                         "(the grammar to serve)")
+    if args.gfcomms_batched and args.gfcomms is None:
+        raise SystemExit("erlamsa-tpu: --gfcomms-batched requires "
+                         "--gfcomms PORT")
     if fleet_mode:
         raise SystemExit("erlamsa_tpu_torch: --shards/--fleet-nodes/--spmd "
                          "(the corpus fleet) is not yet ported")
@@ -491,9 +542,11 @@ def main(argv=None) -> int:
     if args.feedback and not args.corpus:
         raise SystemExit("erlamsa-tpu: --feedback requires --corpus DIR")
     # the card is resolved only where a device path runs: the host engine
-    # (--backend oracle, outside --feedback) touches no CUDA
+    # (--backend oracle, outside --feedback) and sequential --gfcomms
+    # touch no CUDA
     device = None
-    if args.feedback or args.backend == "tpu":
+    if args.feedback or args.gfcomms_batched or (
+            args.backend == "tpu" and args.gfcomms is None):
         try:
             device = resolve_device(args.device)
         except RuntimeError as e:
@@ -594,6 +647,10 @@ def main(argv=None) -> int:
         "certfile": args.certfile,
         "keyfile": args.keyfile,
         "state_path": args.state,
+        # --gen: the runner seeds from the compiled grammar; the oracle
+        # engine's genfuz slot picks up the raw grammar (sequential path)
+        **({"gen": gen_opts, "gen_grammar": gen_opts["grammar"]}
+           if gen_opts else {}),
     }
 
     if args.detach:
@@ -632,6 +689,8 @@ def main(argv=None) -> int:
                              backend=args.backend, bypass=args.bypass,
                              ascent=args.ascent, device=device,
                              **width).start(block=True)
+        if args.gfcomms is not None:
+            return _gfcomms(args, gen_opts, seed, device)
         if args.monitor:
             from .monitors import start_monitors
 
@@ -649,6 +708,53 @@ def main(argv=None) -> int:
         # findings from the last cases must reach durable sinks (sqlite,
         # file), and the trace must land, before the process dies
         _finish()
+
+
+def _gen_opts(args) -> dict | None:
+    """--gen GRAMMAR[:N] -> the runner's ``gen`` options (the grammar, its
+    compiled tables, its label and the sample count), or None. Spec
+    errors exit with one line, as in the JAX CLI."""
+    if not args.gen:
+        return None
+    # hard errors by design: a typo'd grammar must abort the run with
+    # a pointer at the DSL doc, never start an unseeded campaign
+    spec, _, n_part = args.gen.partition(":")
+    try:
+        gen_count = int(n_part) if n_part else 64
+    except ValueError:
+        raise SystemExit(f"erlamsa-tpu: --gen {args.gen!r}: sample "
+                         f"count {n_part!r} is not an integer") from None
+    if gen_count < 1:
+        raise SystemExit(f"erlamsa-tpu: --gen {args.gen!r}: sample "
+                         f"count must be >= 1")
+    from ..gen import GenSpecError, compile_grammar, load_grammar
+
+    try:
+        grammar, label = load_grammar(spec)
+        compiled = compile_grammar(grammar, source=label)
+    except GenSpecError as e:
+        raise SystemExit(
+            f"erlamsa-tpu: --gen: {e} (grammar DSL reference: "
+            f"README.md, 'Generation-based fuzzing')") from None
+    return {"grammar": grammar, "compiled": compiled, "label": label,
+            "n": gen_count}
+
+
+def _gfcomms(args, gen_opts: dict, seed, device) -> int:
+    """--gfcomms PORT: the grammar service, sequential (the ErlRand
+    stream) or, with --gfcomms-batched, on a GenEngine on the card."""
+    from .gfcomms import GfComms
+
+    engine = None
+    if args.gfcomms_batched:
+        from ..gen import GenEngine
+
+        # fuzz=True: the batched service replaces the sequential
+        # fuzz_grammar path, so leaves mutate at the 1/depth rate
+        engine = GenEngine(gen_opts["compiled"], seed, fuzz=True,
+                           device=device)
+    return GfComms(args.gfcomms, grammar=gen_opts["grammar"], seed=seed,
+                   engine=engine).serve(block=True)
 
 
 def _run_feedback(args, opts: dict, device) -> int:

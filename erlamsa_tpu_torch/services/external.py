@@ -69,15 +69,15 @@ class ExternalModule:
         return make(fn)
 
     def generator(self):
-        """The module's genfuz source, or None. A module that offers only
-        ``grammar()`` needs the grammar engine (models/genfuzz.py), which
-        the port does not have yet: that raises ValueError."""
+        """The module's genfuz source, or None: its ``generator``, or a
+        generator over the grammar its ``grammar()`` returns
+        (models/genfuzz.make_external_generator)."""
         if "generator" in self.capabilities and hasattr(self.mod, "generator"):
             return self.mod.generator
         if hasattr(self.mod, "grammar"):
-            raise ValueError(
-                f"external module {self.mod.__name__}: grammar() generators "
-                "need grammar generation (models/genfuzz.py), not yet ported")
+            from ..models.genfuzz import make_external_generator
+
+            return make_external_generator(self.mod.grammar())
         return None
 
     def post(self):

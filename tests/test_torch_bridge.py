@@ -324,19 +324,28 @@ def test_external_nhrp_post_equal():
 
 
 def test_grammar_module_raises_not_ported():
+    """A module offering only grammar() loaded through -e: since grammar
+    generation is ported (models/genfuzz.py) it no longer raises, and
+    its generator fills the genfuz slot with the grammar's samples."""
+    from erlamsa_tpu_torch.models.genfuzz import make_external_generator
     from erlamsa_tpu_torch.services import cli
 
+    grammar = [("static", b"x"), ("rbinary", 2)]
     mod = types.ModuleType("torch_grammar_external")
     mod.capabilities = lambda: set()
-    mod.grammar = lambda: {"start": ["x"]}
+    mod.grammar = lambda: grammar
     sys.modules["torch_grammar_external"] = mod
     try:
-        ext = Text.load_external("torch_grammar_external")
-        with pytest.raises(ValueError, match="genfuzz") as e:
-            ext.generator()
-        assert "\n" not in str(e.value)
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli._load_external("torch_grammar_external", {})
+        gen = Text.load_external("torch_grammar_external").generator()
+        blocks, meta = gen()
+        assert meta == ("generator", "genfuz")
+        assert len(blocks) == 1 and len(blocks[0]) == 3
+        opts = {}
+        cli._load_external("torch_grammar_external", opts)
+        assert opts["external_generator"]()[1] == meta
+        seeded = make_external_generator(grammar, seed=(1, 2, 3))
+        assert seeded() == make_external_generator(grammar,
+                                                   seed=(1, 2, 3))()
     finally:
         del sys.modules["torch_grammar_external"]
 

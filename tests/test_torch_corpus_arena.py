@@ -160,7 +160,7 @@ def test_cli_feedback_requires_corpus(capsys):
 def test_not_ported_options_raise(tmp_path):
     from erlamsa_tpu_torch.corpus.runner import run_corpus_batch
 
-    for key in ("shards", "fleet_nodes", "spmd", "gen"):
+    for key in ("shards", "fleet_nodes", "spmd"):
         with pytest.raises(ValueError, match="not yet ported"):
             run_corpus_batch({"corpus_dir": str(tmp_path), key: 2},
                              batch=8, device="cpu")

@@ -359,3 +359,28 @@ def test_coverage_hub_death_equals_hash_novelty(tmp_path, env):
     assert Tm.GLOBAL.snapshot()["resilience"]["events"]["coverage_lost"] == 1
     _st, files_n, _en = run("port", root, "nohub", adopt=True, coverage=True)
     assert files_n == files_a
+
+
+def test_gen_seeded_campaign_equals_jax(tmp_path, reference):
+    """``--gen demo-tlv:16`` seeding a feedback campaign beside the
+    two-class seeds: the JAX runner's ``# gen:`` line, store (ids, bytes,
+    origin), stats["gen"], files and energies. The JAX runner expands on
+    its jitted expander, the port's on its torch expander on the CPU."""
+    from erlamsa_tpu.gen.compile import BUILTIN_GRAMMARS
+
+    gen = {"grammar": BUILTIN_GRAMMARS["demo-tlv"], "label": "demo-tlv",
+           "n": 16}
+    got = {}
+    for pkg in ("jax", "port"):
+        st, files, en = run(pkg, str(tmp_path), pkg, n=1, gen=dict(gen))
+        store = CorpusStore(str(tmp_path / f"{pkg}-store"))
+        seeds = {sid: (store.get(sid), store.meta(sid)["origin"])
+                 for sid in store.ids()}
+        got[pkg] = (st["gen"], files, en, seeds)
+    assert got["port"] == got["jax"]
+    gen_stats, _files, _en, seeds = got["port"]
+    assert gen_stats == {"grammar": "demo-tlv",
+                         "grammar_id": gen_stats["grammar_id"],
+                         "generated": 16, "host_fallback": 0,
+                         "degraded": False}
+    assert sum(origin == "gen" for _b, origin in seeds.values()) > 0
